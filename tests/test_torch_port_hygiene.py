@@ -1,0 +1,131 @@
+"""The port stands alone: ray_tpu_torch imports neither JAX nor ray_tpu, runs
+on CUDA unless asked for the CPU, and builds its kernels or raises."""
+import os
+import re
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from _torch_port_util import one_torch_thread  # noqa: F401
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(REPO, "ray_tpu_torch")
+
+_IMPORT_ALL_BLOCKED = r"""
+import importlib, pkgutil, sys
+sys.modules["jax"] = None
+sys.modules["ray_tpu"] = None
+import ray_tpu_torch
+assert "torch" not in sys.modules, "importing the package must stay light"
+names = [m.name for m in pkgutil.walk_packages(ray_tpu_torch.__path__, "ray_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+from ray_tpu_torch.ops import _build
+assert not _build._loaded, "importing must build no kernel"
+leaked = sorted(m for m, mod in sys.modules.items() if mod is not None
+                and (m in ("jax", "ray_tpu") or m.startswith(("jax.", "ray_tpu."))))
+assert not leaked, leaked
+print(len(names))
+"""
+
+
+def test_every_module_imports_with_jax_and_ray_tpu_blocked():
+    """In a fresh interpreter (never this worker's sys.modules)."""
+    proc = subprocess.run([sys.executable, "-c", _IMPORT_ALL_BLOCKED], cwd=REPO,
+                          capture_output=True, text=True, timeout=120,
+                          env=dict(os.environ, OMP_NUM_THREADS="1"))
+    assert proc.returncode == 0, proc.stderr
+    assert int(proc.stdout.strip()) >= 15  # the walk saw the whole package
+
+
+def test_no_jax_or_ray_tpu_import_in_the_sources():
+    pattern = re.compile(r"^\s*(import|from)\s+(jax|ray_tpu)(\.|\s|$)")
+    files = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, names in os.walk(PKG):
+        files += [os.path.join(root, n) for n in names if n.endswith(".py")]
+    hits = []
+    for path in files:
+        with open(path, encoding="utf-8") as f:
+            for no, line in enumerate(f, 1):
+                if pattern.match(line) or re.search(r"\bray_tpu\.", line.split("#")[0]):
+                    hits.append(f"{path}:{no}: {line.strip()}")
+    assert len(files) > 15 and not hits, hits
+
+
+def _entry_point(name):
+    from ray_tpu_torch.device import resolve_device
+    from ray_tpu_torch.llm import LLMConfig, LLMServer, TorchLLMEngine
+    from ray_tpu_torch.llm import model_runner
+    from ray_tpu_torch.models import config, llama
+
+    tiny = config.get_config("byte-tiny")
+    return {"resolve_device": lambda: resolve_device(),
+            "TorchLLMEngine": lambda: TorchLLMEngine(LLMConfig()),
+            "LLMServer": lambda: LLMServer(LLMConfig()),
+            "llama.init": lambda: llama.init(tiny),
+            "init_state": lambda: model_runner.init_state(tiny, 1, 16)}[name]
+
+
+@pytest.mark.parametrize("name", ["resolve_device", "TorchLLMEngine", "LLMServer",
+                                  "llama.init", "init_state"])
+def test_entry_points_default_to_cuda_and_refuse_a_silent_cpu(monkeypatch, name):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        _entry_point(name)()
+
+
+def test_cpu_is_there_when_asked_for():
+    from ray_tpu_torch.device import resolve_device
+
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):
+    from ray_tpu_torch.ops import _build
+
+    monkeypatch.setattr(_build.shutil, "which", lambda name: None)
+    monkeypatch.setattr(_build, "DEFAULT_NVCC", str(tmp_path / "no-nvcc"))
+    monkeypatch.setattr(_build, "BUILD_ROOT", str(tmp_path / "kernels"))
+    with pytest.raises(_build.KernelBuildError, match="nvcc not found"):
+        _build.load("flash_fwd")
+    assert "flash_fwd" not in _build._loaded
+
+
+def _fake_nvcc(monkeypatch, tmp_path, body):
+    """Stand in for nvcc with this interpreter running `body` as a script, so
+    the test needs no exec permission on its temporary directory."""
+    from ray_tpu_torch.ops import _build
+
+    script = tmp_path / "fake_nvcc.py"
+    script.write_text(body)
+    monkeypatch.setattr(_build.shutil, "which", lambda name: sys.executable)
+    monkeypatch.setattr(_build, "NVCC_FLAGS", [str(script), *_build.NVCC_FLAGS])
+    monkeypatch.setattr(_build, "BUILD_ROOT", str(tmp_path / "kernels"))
+    monkeypatch.setattr(_build, "build_logs", {})
+    return _build
+
+
+def test_kernel_build_raises_on_compiler_failure(monkeypatch, tmp_path):
+    """A build that fails raises with nvcc's output; nothing is loaded."""
+    _build = _fake_nvcc(monkeypatch, tmp_path, "import sys\n"
+                        "sys.stderr.write('error: no such target\\n')\nsys.exit(3)\n")
+    with pytest.raises(_build.KernelBuildError, match="no such target"):
+        _build.load("flash_fwd")
+    assert "flash_fwd" not in _build._loaded
+    assert not list((tmp_path / "kernels").glob("*/*.so"))
+
+
+def test_kernel_build_is_keyed_by_its_sources(monkeypatch, tmp_path):
+    """A library built from these sources is reused: a second build() finds it
+    and runs no compiler. nvcc is asked for sm_90a."""
+    log = tmp_path / "argv"
+    _build = _fake_nvcc(monkeypatch, tmp_path, "import pathlib, sys\n"
+                        f"with open({str(log)!r}, 'a') as f:\n"
+                        "    f.write(' '.join(sys.argv[1:]) + '\\n')\n"
+                        "pathlib.Path(sys.argv[sys.argv.index('-o') + 1]).touch()\n")
+    first = _build.build("flash_fwd")
+    assert _build.build("flash_fwd") == first and os.path.isfile(first)
+    calls = log.read_text().splitlines()
+    assert len(calls) == 1 and "arch=compute_90a,code=sm_90a" in calls[0]
