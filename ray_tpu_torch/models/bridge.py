@@ -1,10 +1,11 @@
-"""Carry Llama weights between the JAX package's pytree and the port.
+"""Carry Llama weights and optimizer state between the JAX package's pytrees
+and the port.
 
 Both packages keep the same tree and the same einsum layout, so the bridge
 moves arrays as they are: no transposes anywhere, and every leaf's shape is
 checked against ``llama.param_shapes(cfg)``. The JAX side is handed over as
 numpy (``jax.tree_util.tree_map(np.asarray, params)``); this module never
-imports JAX.
+imports JAX or optax.
 """
 from __future__ import annotations
 
@@ -14,6 +15,7 @@ import numpy as np
 import torch
 
 from ray_tpu_torch.device import resolve_device
+from ray_tpu_torch.train.optim import AdamWState
 
 from . import llama
 from .config import ModelConfig
@@ -21,6 +23,8 @@ from .config import ModelConfig
 
 def _leaf(arr, shape, where: str, device, dtype) -> torch.Tensor:
     arr = np.asarray(arr)
+    if arr.dtype.name == "bfloat16":  # ml_dtypes' bf16, which torch cannot read
+        arr = arr.astype(np.float32)  # exact; `dtype` rounds it back
     if tuple(arr.shape) != tuple(shape):
         raise ValueError(f"{where}: shape {tuple(arr.shape)} != expected {tuple(shape)}")
     # np.array copies: the port never aliases the caller's (read-only) buffers
@@ -65,3 +69,30 @@ def params_to_numpy(params: llama.Params) -> Dict[str, Any]:
     return {name: ({k: to_np(v) for k, v in val.items()} if name == "layers"
                    else to_np(val))
             for name, val in params.items()}
+
+
+def opt_state_from_jax(tree, cfg: ModelConfig, device=None,
+                       mu_dtype: torch.dtype = torch.float32) -> AdamWState:
+    """The optax state of ray_tpu/train/step.py:make_optimizer (numpy leaves)
+    -> the port's optim.AdamWState on `device`.
+
+    That state is ``(EmptyState, (ScaleByAdamState(count, mu, nu), EmptyState,
+    ScaleByScheduleState(count)))``: clipping and weight decay keep none, and
+    the two counts are equal. mu is stored in `mu_dtype` (make_optimizer's
+    mu_dtype, f32 by default), nu in f32, both in llama.tree_leaves order."""
+    adam, sched = tree[1][0], tree[1][2]
+    count = int(np.asarray(adam.count))
+    if int(np.asarray(sched.count)) != count:
+        raise ValueError(f"adam count {count} != schedule count {sched.count}")
+    mu = params_from_jax(adam.mu, cfg, device, dtype=mu_dtype)
+    nu = params_from_jax(adam.nu, cfg, device)
+    return AdamWState(count, llama.tree_leaves(mu), llama.tree_leaves(nu))
+
+
+def opt_state_to_numpy(state: AdamWState, params: llama.Params) -> Dict[str, Any]:
+    """optim.AdamWState -> {"count": int, "mu": tree, "nu": tree} with numpy
+    trees in the JAX layout (bf16 moments come back as f32), from which a
+    test rebuilds optax's ScaleByAdamState and ScaleByScheduleState."""
+    return {"count": state.count,
+            "mu": params_to_numpy(llama.tree_unflatten(params, state.mu)),
+            "nu": params_to_numpy(llama.tree_unflatten(params, state.nu))}

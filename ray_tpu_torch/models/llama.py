@@ -7,18 +7,24 @@ layout, layers stacked on a leading [L] axis: ``wq [L,d,H,hd]``, ``wk/wv
 activation dtype at use (a no-op when they are stored in it). Architecture:
 RMSNorm, rotate-half RoPE (HF convention), GQA, SwiGLU.
 
-Branches of the JAX module that this slice does not run raise
+Training: ``loss_fn`` is next-token cross entropy, differentiated by
+autograd; attention's gradient goes through the flash kernels' autograd
+Function on CUDA. ``remat_policy`` ``full`` recomputes each layer in the
+backward pass (``torch.utils.checkpoint``).
+
+Branches of the JAX module that the port does not run yet raise
 NotImplementedError naming their ROADMAP item: MoE (A3), ring/ulysses
-attention and pipeline stages (A6), loss_fn/remat (A1, training). The one-hot
-embedding branch exists only for tensor-parallel vocab sharding (A6), which
-the port does not have yet, so the gather is the whole lookup.
+attention and pipeline stages (A6), the ``dots`` remat policies (A1b). The
+one-hot embedding branch exists only for tensor-parallel vocab sharding (A6),
+which the port does not have yet, so the gather is the whole lookup.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, NamedTuple, Optional, Tuple
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ray_tpu_torch.device import resolve_device
 from ray_tpu_torch.ops.attention import attention
@@ -126,10 +132,50 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor
     return out.to(x.dtype)
 
 
+def _maybe_remat(body, cfg: ModelConfig):
+    """Per-layer rematerialization (ray_tpu/models/llama.py:115-130). 'full'
+    saves only the layer's input and recomputes the layer in the backward pass;
+    'none' (or remat=False) keeps every activation."""
+    policy = getattr(cfg, "remat_policy", "full")
+    if not cfg.remat or policy == "none":
+        return body
+    if policy in ("dots", "dots_no_batch"):
+        raise NotImplementedError(
+            f"remat_policy={policy!r} (save the matmul outputs): ROADMAP A1b")
+    if policy != "full":
+        raise ValueError(
+            f"unknown remat_policy {policy!r} (expected full | dots | dots_no_batch | none)")
+
+    def remat(*args):
+        return checkpoint(body, *args, use_reentrant=False, preserve_rng_state=False)
+
+    return remat
+
+
 def _embed_lookup(table: torch.Tensor, tokens: torch.Tensor,
                   dtype: torch.dtype) -> torch.Tensor:
     """Token embedding gather, cast to the activation dtype (the rows only)."""
     return table[tokens].to(dtype)
+
+
+def tree_leaves(tree: Params) -> List[Any]:
+    """The leaves of a parameter-shaped dict in one fixed order (keys sorted,
+    the layer dict in place of "layers"): the optimizer's order."""
+    out: List[Any] = []
+    for name in sorted(tree):
+        val = tree[name]
+        out += [val[k] for k in sorted(val)] if isinstance(val, dict) else [val]
+    return out
+
+
+def tree_unflatten(like: Params, leaves: List[Any]) -> Params:
+    """tree_leaves' inverse: a dict shaped like `like` holding `leaves`."""
+    it = iter(leaves)
+    out: Params = {}
+    for name in sorted(like):
+        val = like[name]
+        out[name] = {k: next(it) for k in sorted(val)} if isinstance(val, dict) else next(it)
+    return out
 
 
 def layer_params(params: Params, i: int) -> Params:
@@ -219,10 +265,14 @@ def forward(
     positions: Optional[torch.Tensor] = None,
     segment_ids: Optional[torch.Tensor] = None,
     cache: Optional[KVCache] = None,
+    return_aux: bool = False,
 ):
     """tokens [B, S] -> (logits [B, S, vocab] f32, updated cache or None).
 
-    The cache, when given, is updated in place (see KVCache)."""
+    The cache, when given, is updated in place (see KVCache). With
+    return_aux=True also returns the MoE load-balancing loss, a zero for the
+    dense configs the port runs. Without a cache each layer goes through
+    _maybe_remat."""
     _dense_only(cfg)
     if cfg.pipeline_stages > 1 and cache is None:
         raise NotImplementedError("pipeline_stages > 1: ROADMAP A6")
@@ -231,21 +281,46 @@ def forward(
         start = cache.length if cache is not None else 0
         positions = (torch.arange(s, device=tokens.device) + start)[None, :].expand(b, s)
     x = _embed_lookup(params["embed"], tokens, cfg.activation_dtype)
+    if cache is None:
+        layer = _maybe_remat(
+            lambda h, lp: _block(h, lp, cfg, positions, segment_ids)[0], cfg)
     for i in range(cfg.n_layers):
         lp = layer_params(params, i)
         if cache is not None:
             x, _ = _block(x, lp, cfg, positions, segment_ids,
                           (cache.k[i], cache.v[i]), cache.length)
         else:
-            x, _ = _block(x, lp, cfg, positions, segment_ids)
+            x = layer(x, lp)
     new_cache = None
     if cache is not None:
         new_cache = KVCache(cache.k, cache.v, cache.length + s)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    logits = torch.einsum("bsd,dv->bsv", x, lm_head(params, cfg))
-    return logits.float(), new_cache
+    logits = torch.einsum("bsd,dv->bsv", x, lm_head(params, cfg)).float()
+    if return_aux:
+        return logits, new_cache, torch.zeros((), dtype=torch.float32, device=x.device)
+    return logits, new_cache
 
 
-def loss_fn(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig):
-    """Next-token cross entropy with remat: the training slice, ROADMAP A1."""
-    raise NotImplementedError("llama.loss_fn and remat: ROADMAP A1 (training slice)")
+def loss_fn(params: Params, batch: Dict[str, torch.Tensor],
+            cfg: ModelConfig) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Next-token cross entropy (ray_tpu/models/llama.py:437-460). batch:
+    tokens [B, S]; optional loss_mask [B, S] and segment_ids [B, S]. Inputs
+    are tokens[:, :-1], targets tokens[:, 1:]; the mean runs over the masked
+    targets, with a denominator of at least 1."""
+    tokens = batch["tokens"]
+    seg = batch.get("segment_ids")
+    logits, _, aux = forward(params, tokens[:, :-1], cfg,
+                             segment_ids=None if seg is None else seg[:, :-1],
+                             return_aux=True)
+    targets = tokens[:, 1:].long()
+    # target logit minus logsumexp == log_softmax gathered at the target,
+    # without a second [B, S, vocab] f32 tensor
+    lse = torch.logsumexp(logits, dim=-1)
+    tgt = logits.gather(-1, targets[..., None])[..., 0]
+    ll = tgt - lse
+    mask = batch.get("loss_mask")
+    mask = torch.ones_like(ll) if mask is None else mask[:, 1:].to(ll.dtype)
+    denom = mask.sum().clamp_min(1.0)
+    ce = -(ll * mask).sum() / denom
+    loss = ce + aux
+    return loss, {"loss": loss, "ce_loss": ce, "moe_aux_loss": aux, "tokens": denom}

@@ -3,10 +3,11 @@
 At first use each library is compiled from ``ops/csrc/`` with
 ``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC`` into
 ``build/kernels/<name>-<hash>/`` at the repository root. The hash covers the
-sources and the flags, so a rerun on unchanged sources loads the library that
-is already there. The library has a plain C interface: every pointer and the
-stream go through ``ctypes.c_void_p``, and each entry point returns
-``cudaGetLastError()`` so the wrapper can raise on a refused launch.
+sources, the shared headers and the flags, so a rerun on unchanged sources
+loads the library that is already there. The library has a plain C
+interface: every pointer and the stream go through ``ctypes.c_void_p``, and
+each entry point returns ``cudaGetLastError()`` so the wrapper can raise on a
+refused launch.
 
 There is no fallback: a missing ``nvcc`` or a failed build raises.
 """
@@ -34,6 +35,11 @@ LIBRARIES: Dict[str, Tuple[List[str], Dict[str, tuple]]] = {
         "flash_fwd": ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
                       + [ctypes.c_float, ctypes.c_void_p], ctypes.c_int),
     }),
+    "flash_bwd": (["flash_bwd.cu"], {
+        name: ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 8
+               + [ctypes.c_float, ctypes.c_void_p], ctypes.c_int)
+        for name in ("flash_bwd_dq", "flash_bwd_dkv")
+    }),
 }
 
 
@@ -58,8 +64,10 @@ def nvcc_path() -> str:
 
 
 def _digest(sources: List[str]) -> str:
+    """Hash of the flags, the sources and every header under csrc/."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
+    headers = sorted(n for n in os.listdir(CSRC) if n.endswith(".cuh"))
+    for src in [*sources, *headers]:
         with open(os.path.join(CSRC, src), "rb") as f:
             h.update(src.encode() + b"\0" + f.read())
     return h.hexdigest()[:16]

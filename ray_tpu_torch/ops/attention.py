@@ -161,7 +161,7 @@ def attention(
     if impl == "auto":
         impl = choose_impl(q.is_cuda, q.shape[1], k.shape[1], causal=causal,
                            q_offset=q_offset, kv_valid_len=kv_valid_len)
-    if impl == "flash":
+    if impl == "flash":  # differentiable through FlashAttention (backward kernels)
         from .flash_attention import flash_attention
 
         out, _ = flash_attention(q, k, v, causal=causal, segment_ids=segment_ids,

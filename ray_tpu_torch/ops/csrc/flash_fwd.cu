@@ -27,12 +27,13 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "flash_common.cuh"
+
 namespace {
 
 constexpr int BQ = 64;    // query rows per block
 constexpr int BKV = 64;   // key/value rows per smem tile
 constexpr int NT = 128;   // threads per block (f32: 16 row groups x 8 lanes; bf16: 4 warps)
-constexpr float LSE_EMPTY = -1e30f;
 
 template <int D>
 constexpr size_t f32_smem_bytes() {
@@ -217,27 +218,7 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 // the A-fragment layout of P for O += P V (FlashAttention-2), so P never
 // leaves registers: it is rounded to bf16 for the product while the row sums
 // l are taken from the f32 values. K and V tiles are staged in shared memory
-// with rows padded by 8 elements so that the fragment reads hit 32 banks.
-
-constexpr int PAD = 8;  // bf16 elements of row padding in shared memory
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (lo) in the low half
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo, __nv_bfloat16 hi) {
-  return (uint32_t)__bfloat16_as_ushort(lo) | ((uint32_t)__bfloat16_as_ushort(hi) << 16);
-}
+// with rows padded by PAD elements so that the fragment reads hit 32 banks.
 
 template <int D>
 constexpr size_t mma_smem_bytes() {

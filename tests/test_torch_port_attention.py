@@ -1,11 +1,14 @@
-"""Port parity: attention and the flash-attention forward (ray_tpu_torch.ops).
+"""Port parity: attention and flash attention, forward and backward
+(ray_tpu_torch.ops).
 
 The same numpy inputs go through the JAX function and its port, in f32. The
-JAX results are computed once for the module, in two jitted calls: the three
-cases of the Pallas forward kernel B1a in interpret mode (as
-tests/test_flash_attention.py runs it on the CPU), and the rest through the
-plain jnp functions. On the CPU the port's flash wrapper takes its plain version,
-which is what the kernel is held to on the card.
+JAX results are computed once for the module, in three jitted calls: the
+three cases of the Pallas forward kernel B1a in interpret mode (as
+tests/test_flash_attention.py runs it on the CPU), jax.vjp of the Pallas
+flash_attention (whose custom_vjp runs the backward kernels B1b and B1c) in
+interpret mode, and the rest through the plain jnp functions. On the CPU the
+port's flash wrappers take their plain versions, which are what the kernels
+are held to on the card.
 """
 import sys
 
@@ -27,6 +30,7 @@ jax_flash = sys.modules["ray_tpu.ops.flash_attention"]
 
 FLASH_TOL = 2e-3  # the forward bound of tests/test_flash_attention.py:21 (blockwise sums)
 ATTN_TOL = 1e-5  # the same f32 softmax on both sides; only the summation order differs
+GRAD_TOL = 1e-4  # f32 gradients of S=128 rows: blockwise vs whole sums, |grad| up to ~10
 
 # Pallas B1a cases: GQA 4/2, S=64 in 32-row tiles (so causal skips a tile)
 PALLAS_CASES = {"causal": dict(causal=True, seg=False),
@@ -45,6 +49,13 @@ MASK_CASES = {
     "offset-segments": dict(causal=True, q_offset=8, segments=True),
     "all-masked": dict(causal=True, kv_valid_len=0),
 }
+
+
+# backward cases: B2 S128 H4/2 D64 in 64-row blocks, against jax.vjp of the
+# Pallas flash_attention (custom_vjp -> B1b, B1c) in interpret mode
+VJP_CASES = {"causal": dict(causal=True, seg=False),
+             "full": dict(causal=False, seg=False),
+             "segments": dict(causal=True, seg=True)}
 
 
 def _qkv(seed, b, sq, skv, h, hkv, d):
@@ -90,6 +101,31 @@ def jax_pallas():
         return out
 
     return jax.tree_util.tree_map(np.asarray, jax.jit(run)())
+
+
+def _vjp_inputs():
+    q, k, v = _qkv(8, 2, 128, 128, 4, 2, 64)
+    do = np.random.default_rng(9).standard_normal(q.shape).astype(np.float32)
+    seg = np.concatenate([np.zeros((2, 50), np.int32), np.ones((2, 78), np.int32)], 1)
+    return q, k, v, do, seg
+
+
+@pytest.fixture(scope="module")
+def jax_vjp():
+    """(O, dq, dk, dv) of the Pallas flash_attention for each VJP case, from
+    one jitted call."""
+    def run(q, k, v, do, seg):
+        out = {}
+        for name, c in VJP_CASES.items():
+            def f(q, k, v, c=c):
+                return jax_flash.flash_attention(
+                    q, k, v, causal=c["causal"], segment_ids=seg if c["seg"] else None,
+                    block_q=64, block_kv=64)
+            o, pullback = jax.vjp(f, q, k, v)
+            out[name] = (o, *pullback(do))
+        return out
+
+    return jax.tree_util.tree_map(np.asarray, jax.jit(run)(*_vjp_inputs()))
 
 
 @pytest.fixture(scope="module")
@@ -235,3 +271,87 @@ def test_flash_wrapper_refuses_other_devices():
     q, k, v = (x.to("meta") for x in _inputs())
     with pytest.raises(ValueError, match="unsupported device"):
         pt_flash.flash_attention(q, k, v)
+
+
+def _vjp_torch(case, requires_grad=False):
+    q, k, v, do, seg = (torch.from_numpy(x) for x in _vjp_inputs())
+    q, k, v = (x.requires_grad_(requires_grad) for x in (q, k, v))
+    return q, k, v, do, dict(causal=VJP_CASES[case]["causal"],
+                             segment_ids=seg if VJP_CASES[case]["seg"] else None)
+
+
+@pytest.mark.parametrize("case", sorted(VJP_CASES))
+def test_flash_bwd_reference_matches_jax_vjp(jax_vjp, case):
+    """The plain version of B1b/B1c from the port's own O and LSE."""
+    q, k, v, do, kw = _vjp_torch(case)
+    o, lse = pt_flash.flash_attention_reference(q, k, v, **kw)
+    got = pt_flash.flash_attention_bwd_reference(q, k, v, o, lse, do, **kw)
+    for name, g, want in zip(("dq", "dk", "dv"), got, jax_vjp[case][1:]):
+        assert g.dtype == torch.float32 and g.shape == want.shape, name
+        np.testing.assert_allclose(g.numpy(), want, rtol=GRAD_TOL, atol=GRAD_TOL, err_msg=name)
+
+
+@pytest.mark.parametrize("case", sorted(VJP_CASES))
+def test_flash_function_grads_match_jax_vjp(jax_vjp, case):
+    """Autograd through FlashAttention (the custom_vjp's counterpart) on the
+    CPU: the same structure the card runs, with the plain versions inside."""
+    q, k, v, do, kw = _vjp_torch(case, requires_grad=True)
+    o, lse = pt_flash.flash_attention(q, k, v, **kw)
+    assert not lse.requires_grad  # LSE carries no gradient, as in JAX
+    got = torch.autograd.grad(o, (q, k, v), do)
+    want_o, *want = jax_vjp[case]
+    np.testing.assert_allclose(o.detach().numpy(), want_o, rtol=FLASH_TOL, atol=FLASH_TOL)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        np.testing.assert_allclose(g.numpy(), w, rtol=GRAD_TOL, atol=GRAD_TOL, err_msg=name)
+
+
+@pytest.mark.parametrize("impl", ["flash", "auto-on-cuda"])
+def test_flash_path_output_carries_the_function_grad_fn(monkeypatch, impl):
+    """The flash path returns FlashAttention's output, so a loss through
+    attention() reaches wq/wk/wv. auto-on-cuda: the dispatch the card takes
+    (choose_impl -> flash) with the plain versions inside."""
+    q, k, v = (torch.from_numpy(x).requires_grad_() for x in _qkv(10, 1, 16, 16, 4, 2, 64))
+    if impl == "auto-on-cuda":
+        monkeypatch.setattr(pt_attn, "choose_impl", lambda *a, **kw: "flash")
+    out = pt_attn.attention(q, k, v, causal=True, impl="auto" if impl != "flash" else "flash")
+    assert isinstance(out.grad_fn, pt_flash.FlashAttention._backward_cls)
+    out.square().sum().backward()
+    assert all(x.grad is not None and x.grad.abs().sum() > 0 for x in (q, k, v))
+
+
+def test_flash_backward_cpu_wrapper_takes_plain_version_and_counts_nothing():
+    q, k, v, do, kw = _vjp_torch("segments")
+    o, lse = pt_flash.flash_attention_reference(q, k, v, **kw)
+    pt_flash.reset_launch_count()
+    got = pt_flash.flash_attention_backward(q, k, v, o, lse, do, **kw)
+    want = pt_flash.flash_attention_bwd_reference(q, k, v, o, lse, do, **kw)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert all(pt_flash.launch_count(name) == 0 for name in pt_flash.KERNELS)
+
+
+def test_flash_bwd_reference_gives_zero_gradient_on_empty_rows():
+    """A row with no valid key (LSE = LSE_EMPTY) contributes nothing: its P is
+    exactly 0, where exp(S - LSE) would overflow."""
+    q, k, v = (torch.from_numpy(x) for x in _qkv(6, 1, 2, 4, 2, 1, 64))
+    seg = torch.tensor([[1, 1, 0, 0]], dtype=torch.int32)
+    o, lse = pt_flash.flash_attention_reference(q, k, v, causal=True, segment_ids=seg)
+    do = torch.ones_like(q)
+    dq, dk, dv = pt_flash.flash_attention_bwd_reference(q, k, v, o, lse, do, causal=True,
+                                                        segment_ids=seg)
+    assert not dq.abs().any() and not dk.abs().any() and not dv.abs().any()
+
+
+@pytest.mark.parametrize("kind", ["shape", "dtype", "contiguous", "lse"])
+def test_flash_backward_rejects_what_the_kernels_do_not_take(kind):
+    q, k, v, do, _ = _vjp_torch("causal")
+    o, lse = pt_flash.flash_attention_reference(q, k, v)
+    if kind == "shape":
+        do = do[:, :64]
+    elif kind == "dtype":
+        do = do.double()
+    elif kind == "contiguous":
+        o = o.transpose(1, 2).contiguous().transpose(1, 2)
+    else:
+        lse = lse.transpose(1, 2)
+    with pytest.raises(ValueError, match="must"):
+        pt_flash._check_bwd(q, o, lse, do)

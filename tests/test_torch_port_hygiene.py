@@ -60,16 +60,22 @@ def _entry_point(name):
     from ray_tpu_torch.llm import model_runner
     from ray_tpu_torch.models import config, llama
 
+    from ray_tpu_torch import train
+
     tiny = config.get_config("byte-tiny")
+    tx = train.make_optimizer()
     return {"resolve_device": lambda: resolve_device(),
             "TorchLLMEngine": lambda: TorchLLMEngine(LLMConfig()),
             "LLMServer": lambda: LLMServer(LLMConfig()),
             "llama.init": lambda: llama.init(tiny),
-            "init_state": lambda: model_runner.init_state(tiny, 1, 16)}[name]
+            "init_state": lambda: model_runner.init_state(tiny, 1, 16),
+            "train.init_state": lambda: train.init_state(tiny, tx),
+            "make_train_step": lambda: train.make_train_step(tiny, tx)}[name]
 
 
 @pytest.mark.parametrize("name", ["resolve_device", "TorchLLMEngine", "LLMServer",
-                                  "llama.init", "init_state"])
+                                  "llama.init", "init_state", "train.init_state",
+                                  "make_train_step"])
 def test_entry_points_default_to_cuda_and_refuse_a_silent_cpu(monkeypatch, name):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -82,15 +88,44 @@ def test_cpu_is_there_when_asked_for():
     assert resolve_device("cpu") == torch.device("cpu")
 
 
-def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):
+def test_train_step_refuses_a_state_on_another_device(monkeypatch):
+    """A step built for the card does not quietly train a CPU state."""
+    from ray_tpu_torch import train
+    from ray_tpu_torch.models import config
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    tiny = config.get_config("test-tiny")
+    tx = train.make_optimizer()
+    state = train.init_state(tiny, tx, device="cpu")
+    with pytest.raises(ValueError, match="not on the step's device"):
+        train.make_train_step(tiny, tx)(state, {"tokens": torch.zeros((1, 4), dtype=torch.long)})
+
+
+@pytest.mark.parametrize("kwarg,item", [("checkpoint_dir", "A5"), ("mesh", "A6"),
+                                        ("sync", "A8")])
+def test_training_options_outside_the_slice_raise(kwarg, item):
+    from ray_tpu_torch import train
+    from ray_tpu_torch.models import config
+
+    tiny = config.get_config("test-tiny")
+    tx = train.make_optimizer()
+    with pytest.raises(NotImplementedError, match=item):
+        train.init_state(tiny, tx, device="cpu", **{kwarg: "x"})
+    if kwarg == "sync":
+        with pytest.raises(NotImplementedError, match=item):
+            train.make_train_step(tiny, tx, sync="x", device="cpu")
+
+
+@pytest.mark.parametrize("lib", ["flash_fwd", "flash_bwd"])
+def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path, lib):
     from ray_tpu_torch.ops import _build
 
     monkeypatch.setattr(_build.shutil, "which", lambda name: None)
     monkeypatch.setattr(_build, "DEFAULT_NVCC", str(tmp_path / "no-nvcc"))
     monkeypatch.setattr(_build, "BUILD_ROOT", str(tmp_path / "kernels"))
     with pytest.raises(_build.KernelBuildError, match="nvcc not found"):
-        _build.load("flash_fwd")
-    assert "flash_fwd" not in _build._loaded
+        _build.load(lib)
+    assert lib not in _build._loaded
 
 
 def _fake_nvcc(monkeypatch, tmp_path, body):

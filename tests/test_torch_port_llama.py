@@ -187,7 +187,7 @@ def test_forward_with_cache_matches_jax(jax_out, jax_params):
 
 
 @pytest.mark.parametrize("what,item", [("moe", "A3"), ("ring", "A6"), ("pipeline", "A6"),
-                                       ("loss_fn", "A1")])
+                                       ("remat-dots", "A1b")])
 def test_branches_outside_the_slice_raise(what, item):
     tokens = torch.zeros((1, 4), dtype=torch.long)
     if what == "moe":
@@ -195,9 +195,10 @@ def test_branches_outside_the_slice_raise(what, item):
             pt_llama.init(pt_config.get_config("moe-tiny"), device="cpu")
         return
     params = pt_llama.init(PT_CFG, device="cpu")
-    if what == "loss_fn":
+    if what == "remat-dots":
         with pytest.raises(NotImplementedError, match=item):
-            pt_llama.loss_fn(params, {"tokens": tokens}, PT_CFG)
+            pt_llama.loss_fn(params, {"tokens": tokens},
+                             dataclasses.replace(PT_CFG, remat_policy="dots"))
         return
     cfg = (dataclasses.replace(PT_CFG, attention_impl="ring") if what == "ring"
            else dataclasses.replace(PT_CFG, pipeline_stages=2))
