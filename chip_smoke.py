@@ -6,9 +6,13 @@
 Phases, each fatal on failure (the script exits non-zero and prints no result):
   1. the card's name and power limit, the torch and CUDA versions; build every
      kernel library from ops/csrc with nvcc (sm_90a), one nvcc per source, all
-     started together, and print the build time and each kernel's registers;
-  2. every kernel against its plain PyTorch version on the card, at the shapes
-     the main paths give it and a tiny ragged one, in bf16 and f32, with the
+     started together, and print the build time, each kernel's registers and
+     spills (ptxas) and its counts of HGMMA, UTMALDG, UTMASTG and HMMA
+     instructions (cuobjdump -sass);
+  2. the bf16 forward's SASS must hold HGMMA and UTMALDG (wgmma fed by TMA);
+     every kernel against its plain PyTorch version on the card, at the shapes
+     the main paths give it, the edges of the 128-row tiles (S = 127, 129,
+     2047, Sq != Skv) and a tiny ragged one, in bf16 and f32, with the
      stated tolerance: B1a (forward) at the prefill and training shapes, B1b
      and B1c (backward) at the training shape (B6 S2048 H32/8 D128 causal), a
      segment-id shape and a tiny one; each kernel's time (CUDA events, and
@@ -146,12 +150,14 @@ BOUND_ARGS = {"flash_fwd": dict(products=2, q_like=2, kv_like=2, row_f32=1),
               "flash_bwd_dkv": dict(products=4, q_like=2, kv_like=4, row_f32=2)}
 
 
-def attn_inputs(torch, gen, b, s, h, hkv, d, dtype, seg=False):
-    """Seeded q, k, v, dO (and segment ids: a boundary at S/3) on the card."""
+def attn_inputs(torch, gen, b, s, h, hkv, d, dtype, seg=False, skv=None):
+    """Seeded q, k, v, dO (and segment ids: a boundary at S/3) on the card;
+    k and v hold skv rows (default s)."""
     def randn(*shape):
         return torch.randn(shape, generator=gen, device="cuda").to(dtype)
 
-    q, k, v, do = randn(b, s, h, d), randn(b, s, hkv, d), randn(b, s, hkv, d), randn(b, s, h, d)
+    skv = s if skv is None else skv
+    q, k, v, do = randn(b, s, h, d), randn(b, skv, hkv, d), randn(b, skv, hkv, d), randn(b, s, h, d)
     segs = None
     if seg:
         segs = (torch.arange(s, device="cuda") >= s // 3).to(torch.int32)
@@ -171,10 +177,18 @@ def kernel_checks(torch, fa):
     cases.append(dict(TRAIN_SHAPE, causal=True, seg=False))
     cases.append(dict(b=2, s=256, h=32, hkv=8, d=128, causal=True, seg=True))
     cases.append(dict(b=2, s=37, h=4, hkv=2, d=64, causal=True, seg=False))  # tiny
+    # the edges of the bf16 kernel's 128-row TMA tiles: one row short of a
+    # tile, one past it, one short of the training shape; a q tile against
+    # more and fewer kv rows than it has (full attention)
+    for s in (127, 129, 2047):
+        cases.append(dict(b=1, s=s, h=32, hkv=8, d=128, causal=True, seg=False))
+    cases.append(dict(b=1, s=100, skv=300, h=32, hkv=8, d=128, causal=False, seg=False))
+    cases.append(dict(b=2, s=257, skv=77, h=4, hkv=2, d=64, causal=False, seg=False))
     for dtype, tol in ((torch.bfloat16, BF16_TOL), (torch.float32, F32_TOL)):
         for c in cases:
             b, s, h, hkv, d = c["b"], c["s"], c["h"], c["hkv"], c["d"]
-            q, k, v, _, seg = attn_inputs(torch, gen, b, s, h, hkv, d, dtype, c["seg"])
+            q, k, v, _, seg = attn_inputs(torch, gen, b, s, h, hkv, d, dtype, c["seg"],
+                                          c.get("skv"))
             o, lse = fa.flash_attention_forward(q, k, v, causal=c["causal"], segment_ids=seg)
             ro, rlse = fa.flash_attention_reference(q, k, v, causal=c["causal"],
                                                     segment_ids=seg)
@@ -187,7 +201,7 @@ def kernel_checks(torch, fa):
             row = dict(c, dtype=str(dtype).replace("torch.", ""), err_o=err_o,
                        err_lse=err_lse, tol_o=tol, tol_lse=LSE_TOL, ok=ok)
             rows.append(row)
-            print(f"  flash_fwd {row['dtype']:8s} B{b} S{s} H{h}/{hkv} D{d} "
+            print(f"  flash_fwd {row['dtype']:8s} B{b} S{s}/{c.get('skv', s)} H{h}/{hkv} D{d} "
                   f"causal={c['causal']} seg={c['seg']}: max|dO| {err_o:.3e} "
                   f"(tol {tol} + {tol}|O|) max|dLSE| {err_lse:.3e} (tol {LSE_TOL}) "
                   f"{'ok' if ok else 'FAIL'}", flush=True)
@@ -714,6 +728,32 @@ def train_numerics(torch, fa):
                 tol_loss=TRAIN_LOSS_TOL, tol_grad=TRAIN_GRAD_TOL)
 
 
+SASS_OPS = ("HGMMA", "UTMALDG", "UTMASTG", "HMMA")  # wgmma, TMA load / store, mma.sync
+WGMMA_FWD = ("flash_fwd_bf16_wgmma_kernel<64>", "flash_fwd_bf16_wgmma_kernel<128>")
+
+
+def sass_counts(_build):
+    """For every kernel of every built library, how many HGMMA, UTMALDG,
+    UTMASTG and HMMA instructions `cuobjdump -sass` finds in it."""
+    cuobjdump = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
+    out = {}
+    for name in _build.LIBRARIES:
+        text = subprocess.run([cuobjdump, "-sass", _build.build(name)], capture_output=True,
+                              text=True, check=True, timeout=300).stdout
+        func = None
+        for line in text.splitlines():
+            m = re.search(r"Function : (\S+)", line)
+            if m:
+                k = re.search(r"\d(flash_[a-z0-9_]+?_kernel)ILi(\d+)E", m.group(1))
+                func = f"{k.group(1)}<{k.group(2)}>" if k else m.group(1)
+                out[func] = dict.fromkeys(SASS_OPS, 0)
+            elif func is not None:
+                for op in SASS_OPS:
+                    if re.search(rf"\b{op}\b", line):
+                        out[func][op] += 1
+    return out
+
+
 def build_all(_build):
     """One nvcc per library, all started together; then load each."""
     with ThreadPoolExecutor(len(_build.LIBRARIES)) as pool:
@@ -753,10 +793,20 @@ def main() -> int:
             if "Compiling entry function" in line:
                 m = re.search(r"\d(flash_[a-z0-9_]+?_kernel)ILi(\d+)E", line)
                 entry = f"{m.group(1)}<{m.group(2)}>" if m else line.strip()
-            elif "ptxas info" in line and ("registers" in line or "spill" in line):
+            elif "ptxas info" in line and "registers" in line:
                 print(f"  {name} {entry}: {line.split(':', 1)[1].strip()}", flush=True)
+            elif "spill stores" in line:
+                print(f"  {name} {entry}: {line.strip()}", flush=True)
+    sass = sass_counts(_build)
+    for func, counts in sorted(sass.items()):
+        print(f"  sass {func}: " + ", ".join(f"{op} {n}" for op, n in counts.items()),
+              flush=True)
 
     print("[2] kernels against their plain versions", flush=True)
+    for func in WGMMA_FWD:  # the bf16 forward must run on wgmma, fed by TMA
+        counts = sass.get(func, {})
+        if not counts.get("HGMMA") or not counts.get("UTMALDG"):
+            raise SystemExit(f"{func}: no HGMMA or no UTMALDG in its SASS: {counts}")
     checks = kernel_checks(torch, fa)
     bwd_checks = backward_checks(torch, fa)
     buckets = [16, 32, 64, 128, 256, 512, 1024]
@@ -785,11 +835,13 @@ def main() -> int:
                   for r in bwd_checks if r["dtype"] == "bfloat16" and r["s"] == TRAIN_SHAPE["s"])
     fwd_err = max(r["err_o"] for r in checks
                   if r["dtype"] == "bfloat16" and r["s"] == TRAIN_SHAPE["s"])
+    status = {"flash_fwd": "redesigned, PR 6"}
     kernels = []
     for name, (source, replaces) in sources.items():
         t = train_timings[name]
         kernels.append({
-            "name": name, "route": "cuda", "status": "ported", "source": source,
+            "name": name, "route": "cuda", "status": status.get(name, "ported"),
+            "source": source,
             "replaces": replaces, "launches": trained["launches"][name],
             "max_abs_err": fwd_err if name == "flash_fwd" else bwd_err,
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
@@ -797,10 +849,15 @@ def main() -> int:
             "device_ms": t["device_ms"], "shape": "B6 S2048 H32/8 D128 bf16 causal",
         })
     kernels[0]["launches_serving"] = served["launches"]
+    kernels[0]["design"] = (
+        "bf16: a producer warpgroup keeps a 3-stage TMA ring of 128-row K/V tiles "
+        "(mbarrier full/empty); two consumer warpgroups of 64 q rows run S = QK^T and "
+        "O += PV on wgmma m64n128k16 (P from registers, V MN-major), setmaxnreg 24/240, "
+        "O through shared memory and a TMA store")
     total_s = time.perf_counter() - t_start
     print(f"  whole run {total_s:.1f} s", flush=True)
     report = dict(card=card, torch=torch.__version__, cuda=torch.version.cuda,
-                  build_s=build_s, checks=checks, backward_checks=bwd_checks,
+                  build_s=build_s, sass=sass, checks=checks, backward_checks=bwd_checks,
                   timings=timings, training_timings=train_timings, sdpa_backward=sdpa_bwd,
                   served=served, numerics=numerics, trained=trained,
                   train_numerics=train_check, kernels=kernels, total_s=total_s)

@@ -154,7 +154,13 @@ def _maybe_remat(body, cfg: ModelConfig):
 
 def _embed_lookup(table: torch.Tensor, tokens: torch.Tensor,
                   dtype: torch.dtype) -> torch.Tensor:
-    """Token embedding gather, cast to the activation dtype (the rows only)."""
+    """Token embedding gather, cast to the activation dtype (the rows only).
+
+    Out-of-vocabulary ids follow JAX's gather (ray_tpu/models/llama.py:147-157):
+    a negative id wraps once (i + V), then the id is clamped to [0, V - 1], so
+    a bad prompt id reads a row instead of raising (or, on CUDA, asserting)."""
+    v = table.shape[0]
+    tokens = torch.where(tokens < 0, tokens + v, tokens).clamp(0, v - 1)
     return table[tokens].to(dtype)
 
 

@@ -1,6 +1,7 @@
-// Pieces shared by the flash-attention kernels (flash_fwd.cu, flash_bwd.cu):
-// the bf16 tensor-core product (mma.sync.m16n8k16, f32 accumulate) and the
-// packing of two values into one 32-bit fragment register.
+// Pieces shared by the flash-attention kernels: the bf16 tensor-core product
+// of the backward (flash_bwd.cu; mma.sync.m16n8k16, f32 accumulate), the
+// packing of two values into one 32-bit fragment register (both kernels) and
+// the LSE of an empty row (flash_fwd.cu).
 //
 // Fragment layout of m16n8k16 (lane = 4*g + t): A registers a0..a3 hold
 // (row g, k 2t..2t+1), (row g+8, k 2t..2t+1), (row g, k 2t+8..9),

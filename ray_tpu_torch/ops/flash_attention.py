@@ -13,11 +13,12 @@ Replaces the three TPU kernels of ray_tpu/ops/flash_attention.py:
 ``flash_attention()`` is differentiable on both devices.
 
 The kernels are ``csrc/flash_fwd.cu`` and ``csrc/flash_bwd.cu`` (CUDA C++ for
-sm_90a, built by ``_build``). They are bound by the operation rate at the
-prefill and training shapes of the 8B geometry, so bf16 runs every product on
-tensor cores (mma.sync) with P and dS kept in registers; f32 runs on CUDA
-cores. The TPU's 128-lane LSE and segment layout is not copied: LSE and delta
-are [B, H, Sq] and segment ids [B, Skv].
+sm_90a, built by ``_build``; Hopper helpers in ``csrc/hopper.cuh``). They are
+bound by the operation rate at the prefill and training shapes of the 8B
+geometry, so bf16 runs every product on tensor cores with P and dS kept in
+registers: the forward on wgmma fed by a TMA ring of K/V tiles, the backward
+on mma.sync; f32 runs on CUDA cores. The TPU's 128-lane LSE and segment
+layout is not copied: LSE and delta are [B, H, Sq] and segment ids [B, Skv].
 
 Routing: a CPU tensor takes the plain version; a CUDA tensor launches the
 kernel or raises. There is no fallback between the two.
@@ -33,6 +34,7 @@ import torch
 HEAD_DIMS = (64, 128)  # head dims the kernel is compiled for
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 LSE_EMPTY = -1e30  # LSE of a row with no valid key (B1a's NEG_INF)
+ENCODE_ERROR_BASE = 10000  # status = this + CUresult: a tensor map was refused (hopper.cuh)
 
 KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")  # B1a, B1b, B1c
 
@@ -241,6 +243,9 @@ def flash_attention_forward(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(seg), out.data_ptr(),
             lse.data_ptr(), *_shape_args(q, k, causal, scale),
             torch.cuda.current_stream().cuda_stream)
+    if status >= ENCODE_ERROR_BASE:
+        raise RuntimeError(f"flash_fwd: cuTensorMapEncodeTiled failed: CUresult "
+                           f"{status - ENCODE_ERROR_BASE}")
     if status != 0:
         raise RuntimeError(f"flash_fwd launch failed: cudaError {status}")
     _count("flash_fwd")

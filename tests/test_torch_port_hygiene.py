@@ -164,3 +164,30 @@ def test_kernel_build_is_keyed_by_its_sources(monkeypatch, tmp_path):
     assert _build.build("flash_fwd") == first and os.path.isfile(first)
     calls = log.read_text().splitlines()
     assert len(calls) == 1 and "arch=compute_90a,code=sm_90a" in calls[0]
+
+
+@pytest.mark.parametrize("lib", ["flash_fwd", "flash_bwd"])
+def test_kernel_build_is_keyed_by_every_shared_header(monkeypatch, tmp_path, lib):
+    """Every header a kernel source includes lies in csrc/, and a change to
+    any header (hopper.cuh, flash_common.cuh) gives each library a new build
+    key, so no build from older headers is reused."""
+    import re
+    import shutil
+
+    from ray_tpu_torch.ops import _build
+
+    sources, _ = _build.LIBRARIES[lib]
+    for src in sources:
+        with open(os.path.join(_build.CSRC, src)) as f:
+            for name in re.findall(r'#include "([^"]+)"', f.read()):
+                assert os.path.isfile(os.path.join(_build.CSRC, name)), (src, name)
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, csrc)
+    monkeypatch.setattr(_build, "CSRC", str(csrc))
+    before = _build._digest(sources)
+    for header in ("hopper.cuh", "flash_common.cuh"):
+        with open(csrc / header, "a") as f:
+            f.write("\n// changed\n")
+        after = _build._digest(sources)
+        assert after != before, header
+        before = after

@@ -186,6 +186,18 @@ def test_forward_with_cache_matches_jax(jax_out, jax_params):
                                        rtol=LOGITS_TOL, atol=LOGITS_TOL)
 
 
+def test_embed_lookup_clamps_ids_as_jax_gather_does():
+    """Out-of-vocabulary ids read the rows JAX's jitted gather reads: a
+    negative id wraps once, then the id is clamped to [0, V - 1]."""
+    v = CFG.vocab_size
+    table = np.random.default_rng(2).standard_normal((v, 8)).astype(np.float32)
+    ids = np.asarray([0, v - 1, v, 10**6, -1, -v, -v - 1, -10**6], np.int32)
+    want = np.asarray(jax.jit(lambda t, i: t[i])(table, ids))
+    got = pt_llama._embed_lookup(torch.from_numpy(table), torch.from_numpy(ids).long(),
+                                 torch.float32)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
 @pytest.mark.parametrize("what,item", [("moe", "A3"), ("ring", "A6"), ("pipeline", "A6"),
                                        ("remat-dots", "A1b")])
 def test_branches_outside_the_slice_raise(what, item):

@@ -39,6 +39,8 @@ PT_CFG = pt_config.get_config("byte-tiny")
 SLOTS, MAX_LEN, BUCKET = 2, 32, 16  # one JAX compile each for prefill and decode
 RUNNER_PROMPTS = {1: [1, 7, 42, 99, 5], 0: [1, 3, 3, 300, 9, 8, 7, 2, 11]}
 ENGINE_PROMPTS = [[1, 10, 20, 30], [1, 99, 98, 97, 96, 95, 94], [1, 200, 201]]
+OOV_PROMPTS = [[1, 10**6], [1, -1]]  # ids past the vocab and below 0: JAX's gather clamps
+OOV_TOKENS = 4
 GREEDY_TOKENS = 9
 BURST, STEPS_LEFT = 4, [4, 2]
 LOGITS = np.random.default_rng(0).standard_normal((4, 50)).astype(np.float32)
@@ -118,12 +120,13 @@ def jax_burst(jax_params, jax_out):
 @pytest.fixture(scope="module")
 def jax_greedy(jax_params, jax_out):
     """Token ids of a greedy loop over JAX prefill + decode_step, slot 0 with
-    the other slot idle (after jax_out, so its programs are compiled)."""
+    the other slot idle (after jax_out, so its programs are compiled), for
+    ENGINE_PROMPTS and then OOV_PROMPTS."""
     mesh = Mesh(np.asarray(jax.devices()[:1]).reshape(1, 1, 1), ("dp", "ep", "tp"))
     st = jax_runner.init_state(CFG, SLOTS, MAX_LEN, mesh)
     greedy = []
     only0 = jnp.asarray([True, False])
-    for prompt in ENGINE_PROMPTS:
+    for prompt in ENGINE_PROMPTS + OOV_PROMPTS:
         st, last = jax_runner.prefill(jax_params, st, jnp.asarray(_padded(prompt)),
                                       jnp.int32(len(prompt)), jnp.int32(0), CFG)
         ids = [int(jnp.argmax(last))]
@@ -249,8 +252,30 @@ def test_engine_greedy_tokens_match_jax_runner(jax_greedy, pt_params):
         assert not any(t.is_alive() for t in threads)
     finally:
         eng.shutdown()
-    assert got == jax_greedy
+    assert got == jax_greedy[:len(ENGINE_PROMPTS)]
     assert eng.num_prefills == len(ENGINE_PROMPTS)
+
+
+def test_out_of_vocab_prompt_is_served_as_jax_serves_it(jax_greedy, pt_params):
+    """Prompts holding an id past the vocabulary or below 0, admitted while a
+    greedy request decodes in the other slot: the live request runs to its
+    max_tokens, and each bad one gives the JAX runner's greedy ids (its
+    gather clamps) instead of failing every request in flight."""
+    eng = _engine(pt_params, max_model_len=64)
+    greedy = dict(temperature=0.0, stop_token_ids=[-1])
+    try:
+        live = eng.generate([1, 5, 6], SamplingParams(max_tokens=40, **greedy))
+        chunks = [next(live)]  # admitted: decoding while the bad prompts arrive
+        bad = [eng.generate_sync(p, SamplingParams(max_tokens=OOV_TOKENS, **greedy))
+               for p in OOV_PROMPTS]
+        chunks += list(live)
+    finally:
+        eng.shutdown()
+    assert chunks[-1].finish_reason == "length"
+    assert sum(len(c.token_ids) for c in chunks) == 40
+    assert [b.finish_reason for b in bad] == ["length"] * len(OOV_PROMPTS)
+    want = [ids[:OOV_TOKENS] for ids in jax_greedy[len(ENGINE_PROMPTS):]]
+    assert [b.token_ids for b in bad] == want
 
 
 @pytest.fixture(scope="module")
