@@ -9,13 +9,15 @@ Phases, each fatal on failure (the script exits non-zero and prints no result):
      started together, and print the build time, each kernel's registers and
      spills (ptxas) and its counts of HGMMA, UTMALDG, UTMASTG and HMMA
      instructions (cuobjdump -sass);
-  2. the bf16 forward's SASS must hold HGMMA and UTMALDG (wgmma fed by TMA);
-     every kernel against its plain PyTorch version on the card, at the shapes
-     the main paths give it, the edges of the 128-row tiles (S = 127, 129,
-     2047, Sq != Skv) and a tiny ragged one, in bf16 and f32, with the
-     stated tolerance: B1a (forward) at the prefill and training shapes, B1b
-     and B1c (backward) at the training shape (B6 S2048 H32/8 D128 causal), a
-     segment-id shape and a tiny one; each kernel's time (CUDA events, and
+  2. the SASS of every bf16 kernel (B1a, B1b, B1c at D = 64 and 128) must
+     hold HGMMA and UTMALDG and no HMMA (wgmma fed by TMA, no mma.sync), and
+     ptxas must report no spills for it; every kernel against its plain
+     PyTorch version on the card, at the shapes the main paths give it, the
+     edges of the 128-row tiles (S = 127, 129, 2047, Sq != Skv) and a tiny
+     ragged one, in bf16 and f32, with the stated tolerance: B1a (forward) at
+     the prefill and training shapes, B1b and B1c (backward) at the training
+     shape (B6 S2048 H32/8 D128 causal), a segment-id shape, the same tile
+     edges and a tiny one; each kernel's time (CUDA events, and
      device time per launch from torch.profiler) beside its plain version's,
      its bound and one library call's (a yardstick only: the port never calls
      it): B1a at every prefill bucket and at the training shape, B1b and B1c at
@@ -222,10 +224,21 @@ def backward_checks(torch, fa):
              dict(b=2, s=256, h=32, hkv=8, d=128, causal=True, seg=True),
              dict(b=1, s=100, h=32, hkv=8, d=128, causal=False, seg=False),
              dict(b=2, s=37, h=4, hkv=2, d=64, causal=True, seg=False)]  # tiny, ragged
+    # the edges of the bf16 kernels' 128-row own tiles and 64-row ring tiles:
+    # one row short of a block, one past it, one short of the training shape;
+    # a q tile against more and fewer kv rows than it has (full attention)
+    for s in (127, 129, 2047):
+        cases.append(dict(b=1, s=s, h=32, hkv=8, d=128, causal=True, seg=False))
+    cases.append(dict(b=1, s=100, skv=300, h=32, hkv=8, d=128, causal=False, seg=False))
+    cases.append(dict(b=2, s=257, skv=77, h=4, hkv=2, d=64, causal=False, seg=False))
+    # causal with Sq < Skv: kv rows past Sq see no query, so B1c's blocks there
+    # loop over no q tile and must still write dK = dV = 0
+    cases.append(dict(b=1, s=100, skv=300, h=4, hkv=2, d=64, causal=True, seg=False))
     for dtype, tol in ((torch.bfloat16, BWD_BF16_TOL), (torch.float32, BWD_F32_TOL)):
         for c in cases:
             b, s, h, hkv, d = c["b"], c["s"], c["h"], c["hkv"], c["d"]
-            q, k, v, do, seg = attn_inputs(torch, gen, b, s, h, hkv, d, dtype, c["seg"])
+            q, k, v, do, seg = attn_inputs(torch, gen, b, s, h, hkv, d, dtype, c["seg"],
+                                           c.get("skv"))
             kw = dict(causal=c["causal"], segment_ids=seg)
             o, lse = fa.flash_attention_forward(q, k, v, **kw)
             got = fa.flash_attention_backward(q, k, v, o, lse, do, **kw)
@@ -239,7 +252,7 @@ def backward_checks(torch, fa):
                 ok = ok and err <= tol * ref_max and bool(torch.isfinite(g).all())
             row = dict(c, dtype=str(dtype).replace("torch.", ""), errs=errs, tol=tol, ok=ok)
             rows.append(row)
-            print(f"  flash_bwd {row['dtype']:8s} B{b} S{s} H{h}/{hkv} D{d} "
+            print(f"  flash_bwd {row['dtype']:8s} B{b} S{s}/{c.get('skv', s)} H{h}/{hkv} D{d} "
                   f"causal={c['causal']} seg={c['seg']}: " + ", ".join(
                       f"{n} max|d| {e['max_abs_err']:.3e} = {e['rel']:.2e} of max|ref|"
                       for n, e in errs.items()) + f" (tol {tol}) {'ok' if ok else 'FAIL'}",
@@ -729,7 +742,31 @@ def train_numerics(torch, fa):
 
 
 SASS_OPS = ("HGMMA", "UTMALDG", "UTMASTG", "HMMA")  # wgmma, TMA load / store, mma.sync
-WGMMA_FWD = ("flash_fwd_bf16_wgmma_kernel<64>", "flash_fwd_bf16_wgmma_kernel<128>")
+# the bf16 kernels of B1a, B1b and B1c at D = 64 and 128
+WGMMA_KERNELS = tuple(f"flash_{k}_bf16_wgmma_kernel<{d}>"
+                      for k in ("fwd", "bwd_dq", "bwd_dkv") for d in (64, 128))
+
+
+def ptxas_report(_build):
+    """Print each kernel's registers and spills from its library's build log
+    (nvcc -Xptxas -v); return {kernel: (spill store bytes, spill load bytes)}."""
+    spills = {}
+    for name in _build.LIBRARIES:
+        with open(os.path.join(os.path.dirname(_build.build(name)), "build.log")) as f:
+            log = f.read()
+        entry = "?"
+        for line in log.splitlines():
+            if "Compiling entry function" in line:
+                m = re.search(r"\d(flash_[a-z0-9_]+?_kernel)ILi(\d+)E", line)
+                entry = f"{m.group(1)}<{m.group(2)}>" if m else line.strip()
+            elif "ptxas info" in line and "registers" in line:
+                print(f"  {name} {entry}: {line.split(':', 1)[1].strip()}", flush=True)
+            elif "spill stores" in line:
+                print(f"  {name} {entry}: {line.strip()}", flush=True)
+                m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+                if m:
+                    spills[entry] = (int(m.group(1)), int(m.group(2)))
+    return spills
 
 
 def sass_counts(_build):
@@ -787,26 +824,22 @@ def main() -> int:
     build_all(_build)
     build_s = time.perf_counter() - t0
     print(f"  built {sorted(_build.LIBRARIES)} in {build_s:.2f} s", flush=True)
-    for name, log in _build.build_logs.items():
-        entry = "?"
-        for line in log.splitlines():
-            if "Compiling entry function" in line:
-                m = re.search(r"\d(flash_[a-z0-9_]+?_kernel)ILi(\d+)E", line)
-                entry = f"{m.group(1)}<{m.group(2)}>" if m else line.strip()
-            elif "ptxas info" in line and "registers" in line:
-                print(f"  {name} {entry}: {line.split(':', 1)[1].strip()}", flush=True)
-            elif "spill stores" in line:
-                print(f"  {name} {entry}: {line.strip()}", flush=True)
+    spills = ptxas_report(_build)
     sass = sass_counts(_build)
     for func, counts in sorted(sass.items()):
         print(f"  sass {func}: " + ", ".join(f"{op} {n}" for op, n in counts.items()),
               flush=True)
 
     print("[2] kernels against their plain versions", flush=True)
-    for func in WGMMA_FWD:  # the bf16 forward must run on wgmma, fed by TMA
+    for func in WGMMA_KERNELS:  # every bf16 kernel runs on wgmma, fed by TMA, spilling nothing
         counts = sass.get(func, {})
-        if not counts.get("HGMMA") or not counts.get("UTMALDG"):
-            raise SystemExit(f"{func}: no HGMMA or no UTMALDG in its SASS: {counts}")
+        if not counts.get("HGMMA") or not counts.get("UTMALDG") or counts.get("HMMA", 1):
+            raise SystemExit(f"{func}: its SASS needs HGMMA > 0, UTMALDG > 0 and HMMA = 0: "
+                             f"{counts}")
+        if spills.get(func, (1, 1)) != (0, 0):
+            raise SystemExit(f"{func}: ptxas spill stores / loads {spills.get(func)}, want 0")
+    print(f"  SASS and spills of {len(WGMMA_KERNELS)} bf16 kernels ok: HGMMA > 0, UTMALDG > 0, "
+          "HMMA 0, no spills", flush=True)
     checks = kernel_checks(torch, fa)
     bwd_checks = backward_checks(torch, fa)
     buckets = [16, 32, 64, 128, 256, 512, 1024]
@@ -835,7 +868,8 @@ def main() -> int:
                   for r in bwd_checks if r["dtype"] == "bfloat16" and r["s"] == TRAIN_SHAPE["s"])
     fwd_err = max(r["err_o"] for r in checks
                   if r["dtype"] == "bfloat16" and r["s"] == TRAIN_SHAPE["s"])
-    status = {"flash_fwd": "redesigned, PR 6"}
+    status = {"flash_fwd": "redesigned, PR 6", "flash_bwd_dq": "redesigned, PR 7",
+              "flash_bwd_dkv": "redesigned, PR 7"}
     kernels = []
     for name, (source, replaces) in sources.items():
         t = train_timings[name]
@@ -846,7 +880,8 @@ def main() -> int:
             "max_abs_err": fwd_err if name == "flash_fwd" else bwd_err,
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
-            "device_ms": t["device_ms"], "shape": "B6 S2048 H32/8 D128 bf16 causal",
+            "device_ms": t["device_ms"], "library_ratio": t["ms"] / t["library_ms"],
+            "shape": "B6 S2048 H32/8 D128 bf16 causal",
         })
     kernels[0]["launches_serving"] = served["launches"]
     kernels[0]["design"] = (
@@ -854,6 +889,19 @@ def main() -> int:
         "(mbarrier full/empty); two consumer warpgroups of 64 q rows run S = QK^T and "
         "O += PV on wgmma m64n128k16 (P from registers, V MN-major), setmaxnreg 24/240, "
         "O through shared memory and a TMA store")
+    kernels[1]["design"] = (
+        "bf16: a producer warpgroup loads Q and dO of 128 q rows once and keeps a 4-slot "
+        "TMA ring of 64-row K/V tiles; two consumer warpgroups of 64 q rows run S = QK^T "
+        "and dP = dO V^T on wgmma m64n64k16 and dQ += dS K on wgmma m64nDk16 (dS from "
+        "registers, K MN-major), issuing S_t, dP_t with dQ += dS_{t-1} K_{t-1}; delta from "
+        "dO in shared memory; dQ through shared memory and a TMA store; last q tile first")
+    kernels[2]["design"] = (
+        "bf16: a producer warpgroup loads K and V of 128 kv rows once and keeps a 4-slot "
+        "TMA ring of 64-row Q/dO tiles with their LSE, delta and segment ids (plain loads); "
+        "two consumer warpgroups of 64 kv rows run S^T = KQ^T and dP^T = V dO^T on wgmma "
+        "m64n64k16, then dV += P^T dO and dK += dS^T Q on wgmma m64nDk16 (A from registers, "
+        "dO and Q MN-major from the same slot), dK/dV summed over the n_rep q heads in f32 "
+        "registers, out through shared memory and TMA stores; kv tile 0 first")
     total_s = time.perf_counter() - t_start
     print(f"  whole run {total_s:.1f} s", flush=True)
     report = dict(card=card, torch=torch.__version__, cuda=torch.version.cuda,

@@ -49,7 +49,6 @@ class KernelBuildError(RuntimeError):
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
-build_logs: Dict[str, str] = {}  # name -> nvcc's output (register/smem use)
 
 
 def nvcc_path() -> str:
@@ -92,7 +91,6 @@ def build(name: str) -> str:
     if proc.returncode != 0:
         raise KernelBuildError(f"nvcc failed ({proc.returncode}) for {name}:\n{log}")
     os.replace(tmp, lib_path)  # atomic: a concurrent loader never sees half a file
-    build_logs[name] = log
     return lib_path
 
 

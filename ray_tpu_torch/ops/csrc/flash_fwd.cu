@@ -255,12 +255,6 @@ struct WgmmaSmem {
   static constexpr int BYTES = BAR_OFF + 8 * (1 + 2 * STAGES) + 1024;  // + alignment slack
 };
 
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
 // What a consumer thread needs to mask its two rows of an S tile.
 struct RowMask {
   int Skv, causal, row0, row1, seg0, seg1, t4;
@@ -514,19 +508,7 @@ flash_fwd_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
     // the O map expects), then one TMA store per chunk; LSE from the quad's
     // first thread
     const float inv[2] = {l[0] > 0.f ? 1.f / l[0] : 0.f, l[1] > 0.f ? 1.f / l[1] : 0.f};
-#pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
-      const int d = j * 8 + 2 * t4;
-      const int c = d / 64, cc = d % 64;
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const int rl = rl0 + 8 * r;
-        const uint32_t off = (q_base - base) + c * L::CHUNK_Q + rl * 128 +
-                             ((((cc >> 3) ^ (rl & 7))) << 4) + (cc & 7) * 2;
-        *reinterpret_cast<uint32_t*>(sbase + off) =
-            pack_f32(o[4 * j + 2 * r] * inv[r], o[4 * j + 2 * r + 1] * inv[r]);
-      }
-    }
+    store_acc_sw128<D>(sbase + (q_base - base), L::CHUNK_Q, o, inv, rl0, t4);
     hopper::fence_proxy_async();
     hopper::named_barrier_sync(1 + cw, 128);
     if (tid == 0) {

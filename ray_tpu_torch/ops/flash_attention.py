@@ -16,8 +16,8 @@ The kernels are ``csrc/flash_fwd.cu`` and ``csrc/flash_bwd.cu`` (CUDA C++ for
 sm_90a, built by ``_build``; Hopper helpers in ``csrc/hopper.cuh``). They are
 bound by the operation rate at the prefill and training shapes of the 8B
 geometry, so bf16 runs every product on tensor cores with P and dS kept in
-registers: the forward on wgmma fed by a TMA ring of K/V tiles, the backward
-on mma.sync; f32 runs on CUDA cores. The TPU's 128-lane LSE and segment
+registers, on wgmma fed by TMA rings in warp-specialised blocks; f32 runs on
+CUDA cores. The TPU's 128-lane LSE and segment
 layout is not copied: LSE and delta are [B, H, Sq] and segment ids [B, Skv].
 
 Routing: a CPU tensor takes the plain version; a CUDA tensor launches the
@@ -164,7 +164,7 @@ def _check(q, k, v, segment_ids):
     if not (q.device == k.device == v.device):
         raise ValueError("q, k and v must be on one device")
     if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16 for t in (q, k, v)):
-        raise ValueError("bf16 q, k and v must be 16-byte aligned (vector loads)")
+        raise ValueError("bf16 q, k and v must be 16-byte aligned (TMA tensor maps)")
     if segment_ids is not None:
         if sq != k.shape[1]:
             raise ValueError("segment_ids require Sq == Skv")
@@ -183,7 +183,7 @@ def _check_bwd(q, o, lse, do):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
         if q.dtype == torch.bfloat16 and t.data_ptr() % 16:
-            raise ValueError(f"bf16 {name} must be 16-byte aligned (vector loads)")
+            raise ValueError(f"bf16 {name} must be 16-byte aligned (TMA tensor maps)")
     b, sq, h, _ = q.shape
     if (lse.shape != (b, h, sq) or lse.dtype != torch.float32 or not lse.is_contiguous()
             or lse.device != q.device):
@@ -212,6 +212,16 @@ def _device(q: torch.Tensor) -> bool:
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     return q.device.type == "cuda"
+
+
+def _raise_for_status(kernel: str, status: int) -> None:
+    """Raise on a kernel's non-zero C status: ENCODE_ERROR_BASE + a CUresult
+    when a tensor map was refused, else a cudaError_t."""
+    if status >= ENCODE_ERROR_BASE:
+        raise RuntimeError(f"{kernel}: cuTensorMapEncodeTiled failed: CUresult "
+                           f"{status - ENCODE_ERROR_BASE}")
+    if status != 0:
+        raise RuntimeError(f"{kernel}: launch failed: cudaError {status}")
 
 
 def flash_attention_forward(
@@ -243,11 +253,7 @@ def flash_attention_forward(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(seg), out.data_ptr(),
             lse.data_ptr(), *_shape_args(q, k, causal, scale),
             torch.cuda.current_stream().cuda_stream)
-    if status >= ENCODE_ERROR_BASE:
-        raise RuntimeError(f"flash_fwd: cuTensorMapEncodeTiled failed: CUresult "
-                           f"{status - ENCODE_ERROR_BASE}")
-    if status != 0:
-        raise RuntimeError(f"flash_fwd launch failed: cudaError {status}")
+    _raise_for_status("flash_fwd", status)
     _count("flash_fwd")
     return out, lse
 
@@ -266,8 +272,7 @@ def launch_bwd_dq(q, k, v, o, lse, do, seg, *, causal, scale):
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
             lse.data_ptr(), _ptr(seg), dq.data_ptr(), delta.data_ptr(),
             *_shape_args(q, k, causal, scale), torch.cuda.current_stream().cuda_stream)
-    if status != 0:
-        raise RuntimeError(f"flash_bwd_dq launch failed: cudaError {status}")
+    _raise_for_status("flash_bwd_dq", status)
     _count("flash_bwd_dq")
     return dq, delta
 
@@ -284,8 +289,7 @@ def launch_bwd_dkv(q, k, v, do, lse, delta, seg, *, causal, scale):
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
             delta.data_ptr(), _ptr(seg), dk.data_ptr(), dv.data_ptr(),
             *_shape_args(q, k, causal, scale), torch.cuda.current_stream().cuda_stream)
-    if status != 0:
-        raise RuntimeError(f"flash_bwd_dkv launch failed: cudaError {status}")
+    _raise_for_status("flash_bwd_dkv", status)
     _count("flash_bwd_dkv")
     return dk, dv
 

@@ -84,6 +84,16 @@ def _ragged_inputs(name):
     return _qkv(1, b, s, s, h, hkv, 64)
 
 
+# ragged GQA cases whose backward is also held against jax.vjp of the plain
+# jnp attention (lengths that are no multiple of the kernels' tiles)
+RAGGED_BWD_CASES = ("s37-causal", "s100-full")
+
+
+def _ragged_do(name):
+    b, s, h, _, _ = RAGGED_CASES[name]
+    return np.random.default_rng(11).standard_normal((b, s, h, 64)).astype(np.float32)
+
+
 @pytest.fixture(scope="module")
 def jax_pallas():
     """B1a's three cases in Pallas interpret mode, from one jitted call."""
@@ -136,6 +146,11 @@ def jax_out():
         for name, case in RAGGED_CASES.items():
             q, k, v = (jnp.asarray(x) for x in _ragged_inputs(name))
             out["ragged", name] = jax_attn.attention_reference(q, k, v, causal=case[4])
+            if name in RAGGED_BWD_CASES:
+                _, pullback = jax.vjp(
+                    lambda q, k, v, c=case[4]: jax_attn.attention_reference(q, k, v, causal=c),
+                    q, k, v)
+                out["ragged-vjp", name] = pullback(jnp.asarray(_ragged_do(name)))
         q, k, v, seg = (jnp.asarray(x) for x in _mask_inputs())
         for name, kw in MASK_CASES.items():
             kw = dict(kw)
@@ -291,6 +306,20 @@ def test_flash_bwd_reference_matches_jax_vjp(jax_vjp, case):
         np.testing.assert_allclose(g.numpy(), want, rtol=GRAD_TOL, atol=GRAD_TOL, err_msg=name)
 
 
+@pytest.mark.parametrize("case", RAGGED_BWD_CASES)
+def test_flash_bwd_reference_ragged_matches_jax_vjp(jax_out, case):
+    """The plain version of B1b/B1c, which the card holds the kernels to, at
+    ragged GQA lengths against jax.vjp of the plain jnp attention."""
+    causal = RAGGED_CASES[case][4]
+    q, k, v = (torch.from_numpy(x) for x in _ragged_inputs(case))
+    do = torch.from_numpy(_ragged_do(case))
+    o, lse = pt_flash.flash_attention_reference(q, k, v, causal=causal)
+    got = pt_flash.flash_attention_bwd_reference(q, k, v, o, lse, do, causal=causal)
+    for name, g, want in zip(("dq", "dk", "dv"), got, jax_out["ragged-vjp", case]):
+        assert g.dtype == torch.float32 and g.shape == want.shape, name
+        np.testing.assert_allclose(g.numpy(), want, rtol=GRAD_TOL, atol=GRAD_TOL, err_msg=name)
+
+
 @pytest.mark.parametrize("case", sorted(VJP_CASES))
 def test_flash_function_grads_match_jax_vjp(jax_vjp, case):
     """Autograd through FlashAttention (the custom_vjp's counterpart) on the
@@ -355,3 +384,17 @@ def test_flash_backward_rejects_what_the_kernels_do_not_take(kind):
         lse = lse.transpose(1, 2)
     with pytest.raises(ValueError, match="must"):
         pt_flash._check_bwd(q, o, lse, do)
+
+
+@pytest.mark.parametrize("kernel", pt_flash.KERNELS)
+@pytest.mark.parametrize("status,match", [
+    (pt_flash.ENCODE_ERROR_BASE + 1, "cuTensorMapEncodeTiled failed: CUresult 1$"),
+    (700, "launch failed: cudaError 700$"),
+])
+def test_kernel_status_raises_with_its_cause(kernel, status, match):
+    """Every launch reads its C status through one helper: a refused tensor
+    map (ENCODE_ERROR_BASE + CUresult) and a CUDA error each raise, naming
+    the kernel; 0 passes."""
+    with pytest.raises(RuntimeError, match=f"^{kernel}: {match}"):
+        pt_flash._raise_for_status(kernel, status)
+    pt_flash._raise_for_status(kernel, 0)

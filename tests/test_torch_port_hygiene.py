@@ -138,7 +138,6 @@ def _fake_nvcc(monkeypatch, tmp_path, body):
     monkeypatch.setattr(_build.shutil, "which", lambda name: sys.executable)
     monkeypatch.setattr(_build, "NVCC_FLAGS", [str(script), *_build.NVCC_FLAGS])
     monkeypatch.setattr(_build, "BUILD_ROOT", str(tmp_path / "kernels"))
-    monkeypatch.setattr(_build, "build_logs", {})
     return _build
 
 
