@@ -33,18 +33,30 @@ Phases, each fatal on failure (the script exits non-zero and prints no result):
   4. the served model's output checked against the plain path at full width
      (two layers of llama3-8b in f32): prefill logits through the flash kernel
      vs plain attention, and a decode step vs the full forward;
-  5. the training path: make_train_step(llama8b-geom2, make_optimizer(
-     warmup_steps=2, total_steps=1000)) in bf16 with f32 parameters and
-     remat=full, on one seeded batch of 6 x 2049 tokens: one warm-up step, then
-     TRAIN_STEPS timed steps with the launch counts zeroed just before and read
-     just after (B1a must launch 2 x n_layers times a step, B1b and B1c
-     n_layers times each); finite losses and grad norms, the last loss below
-     the first timed one; step time, tokens/s, MFU against the bf16 peak, peak
-     memory; torch.profiler over one step;
-  6. the training numerics at full width: llama8b-geom2 in f32 at B1 S256,
-     loss_fn's value and every parameter's gradient through the kernels against
-     the same step with attention_impl="reference";
-  7. a JSON line of the kernels, the card's name and power limit, and last the
+  5. paged serving: llama3-8b on the same weights with kv_layout="paged" and
+     bench_serve.py's engine settings (32 slots, 1024 positions, 32-token
+     blocks, buckets 32..1024): decode_step_paged against decode_step on the
+     same KV (8 slots, one inactive with a stale table); cold prompts of
+     121, 501 and 960 tokens (B1a n_layers times per prefill); a 512-token
+     prefix shared by 4 suffixes of 64 (512 hit tokens and no B1a launch per
+     warm request, warm first-token logits against a cold whole prefill);
+     chunked prefill of the 960-token prompt (logits against the whole
+     prefill, no B1a launch); preemption of 4 concurrent 250-token prompts
+     in a 36-block pool (all finish, >= 1 preemption, the pool all free);
+     torch.profiler over one detached prefill and one 32-slot paged step;
+  6. the training path: make_train_step(llama8b-geom2, make_optimizer(
+     warmup_steps=2, total_steps=1000)) in bf16 with f32 parameters, with
+     remat dots (bench.py's policy) and then full, on one seeded batch of
+     6 x 2049 tokens: for each, one warm-up step, then TRAIN_STEPS timed
+     steps with the launch counts zeroed just before and read just after
+     (B1a must launch 2 x n_layers times a step under either policy, B1b and
+     B1c n_layers times each); finite losses and grad norms, the last loss
+     below the first timed one; step time, tokens/s, MFU against the bf16
+     peak, peak memory; torch.profiler over one step;
+  7. the training numerics at full width: llama8b-geom2 in f32 at B1 S256,
+     loss_fn's value and every parameter's gradient through the kernels,
+     with remat full and dots, against attention_impl="reference";
+  8. a JSON line of the kernels, the card's name and power limit, and last the
      line {"ok": true, "device": {...}}.
 With ``--json PATH`` a copy of every number is written to PATH as JSON.
 """
@@ -82,6 +94,13 @@ PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 SOLO_REPEATS = 3  # solo requests per TTFT bucket
 TRAIN_SHAPE = dict(b=6, s=2048, h=32, hkv=8, d=128)  # llama8b-geom2's attention at B6 S2048
 TRAIN_STEPS = 8  # timed steps after one warm-up step
+# bench_serve.py's engine settings for the paged phase
+PAGED = dict(kv_layout="paged", max_num_seqs=32, max_model_len=1024, kv_block_size=32,
+             prefill_buckets=[32, 64, 128, 256, 512, 1024])
+# bf16 logits of the paged phase, max|d| over max|ref|: the two sides differ in
+# their attention path (flash for a whole prompt, the plain path for a chunk or
+# a suffix) and in their bf16 roundings, through 32 layers
+PAGED_TOL = 2e-2
 
 
 def nvidia_smi() -> str:
@@ -503,13 +522,14 @@ def main_path(torch, fa, card):
         raise SystemExit(f"flash launches {launches} != n_layers {n_layers} x prefills "
                          f"{prefills}: the prefill path did not run through the kernel")
     profile = where_time_goes(torch, server)
+    params = eng.params  # the paged phase serves the same weights
     server.shutdown()
     del server, eng
     torch.cuda.empty_cache()
     return dict(init_s=init_s, requests=results, phase_s=phase_s,
                 phase_tokens=phase_tokens, aggregate_tok_s=phase_tokens / phase_s,
                 solo=solo, peak_gib=peak_gb, launches=launches, prefills=prefills,
-                n_layers=n_layers, profile=profile)
+                n_layers=n_layers, profile=profile), params
 
 
 # device time of a profile by kind, from the kernel's name (first match wins)
@@ -614,17 +634,20 @@ def output_check(torch):
 
 
 def launches_per_step(n_layers):
-    """Kernel launches of one train step with remat=full: B1a in the forward
-    and again in each layer's recomputation, B1b and B1c once per layer."""
+    """Kernel launches of one train step with remat full or dots: B1a in the
+    forward and again in each layer's recomputation (the flash Function's
+    output is not a product, so dots recomputes it too), B1b and B1c once per
+    layer."""
     return {"flash_fwd": 2 * n_layers, "flash_bwd_dq": n_layers, "flash_bwd_dkv": n_layers}
 
 
-def train_path(torch, fa, card):
-    """llama8b-geom2 trained on the card through make_train_step."""
+def train_path(torch, fa, card, policy):
+    """llama8b-geom2 trained on the card through make_train_step, with the
+    remat policy `policy`."""
     from ray_tpu_torch.models.config import get_config
     from ray_tpu_torch.train import init_state, make_optimizer, make_train_step
 
-    cfg = get_config("llama8b-geom2")  # remat=True, remat_policy="full", bf16
+    cfg = get_config("llama8b-geom2", remat_policy=policy)  # remat=True, bf16
     tx = make_optimizer(warmup_steps=2, total_steps=1000)
     t0 = time.perf_counter()
     state = init_state(cfg, tx, seed=0)
@@ -669,9 +692,9 @@ def train_path(torch, fa, card):
     tokens = b * s
     tok_s = tokens / step_s
     mfu = 6 * cfg.n_params * tok_s / PEAK_BF16_FLOPS
-    print(f"  median step {step_s * 1e3:.2f} ms, {tok_s:.1f} tokens/s, 6*N*tokens/s "
-          f"over {PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s (MFU against the bf16 peak) "
-          f"{mfu:.4f}; peak device memory {peak_gib:.2f} GiB [{card}]", flush=True)
+    print(f"  remat {policy}: median step {step_s * 1e3:.2f} ms, {tok_s:.1f} tokens/s, "
+          f"6*N*tokens/s over {PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s (MFU against the bf16 "
+          f"peak) {mfu:.4f}; peak device memory {peak_gib:.2f} GiB [{card}]", flush=True)
     want = launches_per_step(n_layers)
     print(f"  launches over {TRAIN_STEPS} steps: {launches}; per step expected {want}",
           flush=True)
@@ -684,10 +707,10 @@ def train_path(torch, fa, card):
     if not finite or not steps[-1]["loss"] < steps[0]["loss"] or steps[0]["lr"] <= 0:
         raise SystemExit(f"training did not run clean: finite={finite}, losses "
                          f"{[r['loss'] for r in steps]}, first lr {steps[0]['lr']}")
-    profile = profile_once(torch, "train_step", lambda: step(state, batch))
+    profile = profile_once(torch, f"train_step_{policy}", lambda: step(state, batch))
     del state, step, batch
     torch.cuda.empty_cache()
-    return dict(init_s=init_s, warmup=warm, steps=steps, step_ms=step_s * 1e3,
+    return dict(policy=policy, init_s=init_s, warmup=warm, steps=steps, step_ms=step_s * 1e3,
                 tokens_per_step=tokens, tokens_per_s=tok_s, mfu_bf16_peak=mfu,
                 peak_gib=peak_gib, launches=launches, launches_per_step=want,
                 n_params=cfg.n_params, profile=profile)
@@ -696,7 +719,9 @@ def train_path(torch, fa, card):
 def train_numerics(torch, fa):
     """llama8b-geom2 in f32 at B1 S256: loss_fn's value and every parameter's
     gradient through the kernels (attention on the auto path, which takes
-    flash on the card) against attention_impl="reference"."""
+    flash on the card), with remat full and with dots (selective
+    checkpointing around the flash Function), against attention_impl=
+    "reference" with remat full."""
     from ray_tpu_torch.models import llama
     from ray_tpu_torch.models.config import get_config
 
@@ -710,35 +735,288 @@ def train_numerics(torch, fa):
     batch = {"tokens": torch.randint(0, cfg.vocab_size, (1, 257), generator=gen,
                                      device="cuda")}
     out = {}
-    for impl in ("auto", "reference"):
+    for impl, policy in (("reference", "full"), ("auto", "full"), ("auto", "dots")):
         fa.reset_launch_count()
-        c = dataclasses.replace(cfg, attention_impl=impl)
+        c = dataclasses.replace(cfg, attention_impl=impl, remat_policy=policy)
         loss, _ = llama.loss_fn(params, batch, c)
         grads = torch.autograd.grad(loss, leaves)
         torch.cuda.synchronize()
-        out[impl] = (loss.item(), grads, {k: fa.launch_count(k) for k in fa.KERNELS})
-    (loss_k, grads_k, launches), (loss_r, grads_r, ref_launches) = out["auto"], out["reference"]
-    if launches != launches_per_step(cfg.n_layers) or any(ref_launches.values()):
-        raise SystemExit(f"kernel launches {launches} (reference {ref_launches}) != "
-                         f"{launches_per_step(cfg.n_layers)}")
-    errs = []
-    for g, r in zip(grads_k, grads_r):
-        ref_max = r.abs().max().item()
-        errs.append((g - r).abs().max().item() / max(ref_max, 1e-30))
-    err_loss = abs(loss_k - loss_r) / abs(loss_r)
-    finite = all(bool(torch.isfinite(g).all()) for g in grads_k)
-    print(f"  llama8b-geom2, f32, B1 S256: loss {loss_k:.7f} vs {loss_r:.7f} (rel "
-          f"{err_loss:.2e}, tol {TRAIN_LOSS_TOL}); worst gradient max|d| / max|ref| "
-          f"{max(errs):.2e} over {len(errs)} leaves (tol {TRAIN_GRAD_TOL}); launches "
-          f"{launches}", flush=True)
-    if not finite or err_loss > TRAIN_LOSS_TOL or max(errs) > TRAIN_GRAD_TOL:
-        raise SystemExit("training gradients through the kernels disagree with the "
-                         "plain path")
-    del params, leaves, grads_k, grads_r, out
+        out[impl, policy] = (loss.item(), grads, {k: fa.launch_count(k) for k in fa.KERNELS})
+    loss_r, grads_r, ref_launches = out["reference", "full"]
+    if any(ref_launches.values()):
+        raise SystemExit(f"the reference path launched kernels: {ref_launches}")
+    report = dict(loss_reference=loss_r, tol_loss=TRAIN_LOSS_TOL, tol_grad=TRAIN_GRAD_TOL)
+    for policy in ("full", "dots"):
+        loss_k, grads_k, launches = out["auto", policy]
+        if launches != launches_per_step(cfg.n_layers):
+            raise SystemExit(f"remat {policy}: kernel launches {launches} != "
+                             f"{launches_per_step(cfg.n_layers)}")
+        errs = []
+        for g, r in zip(grads_k, grads_r):
+            ref_max = r.abs().max().item()
+            errs.append((g - r).abs().max().item() / max(ref_max, 1e-30))
+        err_loss = abs(loss_k - loss_r) / abs(loss_r)
+        finite = all(bool(torch.isfinite(g).all()) for g in grads_k)
+        print(f"  llama8b-geom2, f32, B1 S256, remat {policy} through the kernels: loss "
+              f"{loss_k:.7f} vs {loss_r:.7f} (rel {err_loss:.2e}, tol {TRAIN_LOSS_TOL}); "
+              f"worst gradient max|d| / max|ref| {max(errs):.2e} over {len(errs)} leaves "
+              f"(tol {TRAIN_GRAD_TOL}); launches {launches}", flush=True)
+        if not finite or err_loss > TRAIN_LOSS_TOL or max(errs) > TRAIN_GRAD_TOL:
+            raise SystemExit(f"remat {policy}: training gradients through the kernels "
+                             "disagree with the plain path")
+        report[policy] = dict(loss_kernels=loss_k, err_loss=err_loss,
+                              worst_grad_rel=max(errs), grad_rel=errs, launches=launches)
+    del params, leaves, grads_r, out
     torch.cuda.empty_cache()
-    return dict(loss_kernels=loss_k, loss_reference=loss_r, err_loss=err_loss,
-                worst_grad_rel=max(errs), grad_rel=errs, launches=launches,
-                tol_loss=TRAIN_LOSS_TOL, tol_grad=TRAIN_GRAD_TOL)
+    return report
+
+
+def rel_err(got, ref):
+    """max|got - ref| / max|ref|, in f32."""
+    return ((got.float() - ref.float()).abs().max() / ref.float().abs().max()).item()
+
+
+def random_ids(torch, gen, n):
+    """n token ids inside llama3-8b's vocabulary, from a CPU generator."""
+    return torch.randint(3, 128000, (n,), generator=gen).tolist()
+
+
+def padded_ids(torch, ids, width):
+    tokens = torch.zeros((1, width), dtype=torch.long)
+    tokens[0, :len(ids)] = torch.tensor(ids)
+    return tokens.cuda()
+
+
+def paged_function_check(torch, params, cfg):
+    """decode_step_paged against decode_step on the same KV: 8 slots of
+    llama3-8b in bf16, each slot's random KV installed into a slot state and
+    into shuffled blocks of a paged state; two steps, slot 7 inactive with a
+    stale table entry that points at slot 0's first block."""
+    from ray_tpu_torch.llm import model_runner, paged
+
+    slots, max_len, bs = 8, PAGED["max_model_len"], PAGED["kv_block_size"]
+    lengths = [37, 100, 250, 500, 777, 960, 1000, 64]
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(7)
+    slot_state = model_runner.init_state(cfg, slots, max_len)
+    n_blocks = slots * max_len // bs
+    pstate = paged.init_paged_state(cfg, slots, max_len, n_blocks, bs)
+    free = torch.randperm(n_blocks, generator=torch.Generator().manual_seed(8)).tolist()
+    for slot, n in enumerate(lengths):
+        nb = -(-(n + 2) // bs)  # room for the two steps
+        shape = (cfg.n_layers, 1, nb * bs, cfg.n_kv_heads, cfg.head_dim)
+        k = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+        v = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+        model_runner.install_kv(slot_state, k, v, n, slot)
+        ids, free = free[:nb], free[nb:]
+        paged.install_prefill(pstate, k, v, ids, n, slot, nb)
+        del k, v
+    pstate.block_tables[7, lengths[7] // bs] = pstate.block_tables[0, 0]
+    active = torch.tensor([True] * 7 + [False], device="cuda")
+    toks = torch.randint(0, cfg.vocab_size, (2, slots), generator=gen, device="cuda")
+    errs = []
+    for t in range(2):
+        _, ref = model_runner.decode_step(params, slot_state, toks[t], active, cfg)
+        _, got = paged.decode_step_paged(params, pstate, toks[t], active, cfg)
+        torch.cuda.synchronize()
+        errs.append(rel_err(got[:7], ref[:7]))
+    same_lengths = pstate.lengths.tolist() == slot_state.lengths.tolist()
+    print(f"  decode_step_paged vs decode_step, 8 slots of lengths {lengths}, slot 7 "
+          f"inactive with a stale table: logits max|d| / max|ref| {errs} (tol "
+          f"{PAGED_TOL}), lengths equal {same_lengths}", flush=True)
+    if max(errs) > PAGED_TOL or not same_lengths:
+        raise SystemExit("the paged decode step disagrees with the slot decode step")
+    del slot_state, pstate
+    torch.cuda.empty_cache()
+    return dict(lengths=lengths, rel_errs=errs, tol=PAGED_TOL)
+
+
+def solo_request(eng, ids, max_tokens):
+    """One greedy request alone: TTFT, decode tokens/s, and its checks."""
+    from ray_tpu_torch.llm import SamplingParams
+
+    t = time.perf_counter()
+    stamps, n_tokens, out = [], 0, None
+    for out in eng.generate(ids, SamplingParams(max_tokens=max_tokens, temperature=0.0,
+                                                stop_token_ids=[-1])):
+        stamps.append(time.perf_counter())
+        n_tokens += len(out.token_ids)
+    if n_tokens != max_tokens or out.finish_reason != "length":
+        raise SystemExit(f"request of {len(ids)} tokens ended with {n_tokens} tokens "
+                         f"({out.finish_reason})")
+    tps = (len(stamps) - 1) / (stamps[-1] - stamps[0]) if len(stamps) > 1 else None
+    return dict(prompt_tokens=out.num_prompt_tokens, ttft_ms=(stamps[0] - t) * 1e3,
+                decode_tok_s=tps, tokens=n_tokens)
+
+
+def paged_path(torch, fa, card, params):
+    """llama3-8b served with kv_layout="paged" and bench_serve.py's engine
+    settings (32 slots, 1024 positions, 32-token blocks, buckets 32..1024),
+    on the slot phase's weights: the paged decode step against the slot one;
+    cold prompts through the engine; the prefix cache; chunked prefill;
+    preemption in a small pool."""
+    from ray_tpu_torch.llm import LLMConfig, LLMServer, TorchLLMEngine, model_runner, paged
+
+    cfg = LLMConfig(model_source="llama3-8b", **PAGED)
+    eng = TorchLLMEngine(cfg, params=params)
+    server = LLMServer(cfg, engine=eng)
+    mcfg = eng.model_config
+    n_layers, bs = mcfg.n_layers, cfg.kv_block_size
+    out = dict(config=dict(PAGED), function=paged_function_check(torch, eng.params, mcfg))
+    gen = torch.Generator().manual_seed(9)
+
+    # ---- served prompts, all cold: B1a n_layers times per prefill ----
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launch_count()
+    prefills0 = eng.num_prefills
+    solo = [solo_request(eng, random_ids(torch, gen, n), 32) for n in (121, 501, 960)]
+    torch.cuda.synchronize()
+    launches, prefills = fa.launch_count(), eng.num_prefills - prefills0
+    m = eng.metrics()
+    for r in solo:
+        print(f"  paged, cold prompt {r['prompt_tokens']} tokens: TTFT {r['ttft_ms']:.2f} ms, "
+              f"decode {r['decode_tok_s']:.2f} tok/s over {r['tokens']} tokens [{card}]",
+              flush=True)
+    print(f"  flash launches {launches} over {prefills} prefills (n_layers {n_layers}); "
+          f"pool {m['kv_blocks_total']} blocks of {bs} tokens, prefix hits "
+          f"{m['prefix_cache_hit_tokens']} tokens", flush=True)
+    if prefills != 3 or launches != n_layers * prefills or m["prefix_cache_hit_tokens"]:
+        raise SystemExit(f"paged prefills {prefills}, flash launches {launches}, hits "
+                         f"{m['prefix_cache_hit_tokens']}: the fresh paged prefill did not "
+                         "run through the kernel once per layer")
+    out.update(solo=solo, launches=launches, prefills=prefills)
+
+    # ---- the prefix cache: a shared 512-token prefix, 4 suffixes of 64 ----
+    prefix = random_ids(torch, gen, 512)
+    suffixes = [random_ids(torch, gen, 64) for _ in range(4)]
+    runs = []
+    for i, suffix in enumerate(suffixes):
+        hits0 = eng.metrics()["prefix_cache_hit_tokens"]
+        fa.reset_launch_count()
+        r = solo_request(eng, prefix + suffix, 8)
+        torch.cuda.synchronize()
+        r.update(hit_tokens=eng.metrics()["prefix_cache_hit_tokens"] - hits0,
+                 launches=fa.launch_count(), warm=i > 0)
+        runs.append(r)
+        print(f"  prefix {'warm' if i else 'cold'}: prompt {r['prompt_tokens']} tokens, hit "
+              f"{r['hit_tokens']} tokens, TTFT {r['ttft_ms']:.2f} ms, flash launches "
+              f"{r['launches']} [{card}]", flush=True)
+    want = [(0, n_layers)] + [(512, 0)] * 3
+    if [(r["hit_tokens"], r["launches"]) for r in runs] != want:
+        raise SystemExit(f"prefix cache: (hit tokens, flash launches) per request "
+                         f"{[(r['hit_tokens'], r['launches']) for r in runs]}, want {want}")
+    # a warm request's first-token logits against a cold whole prefill
+    prompt = prefix + suffixes[1]
+    cached = [eng._blocks.cached[key] for key in eng._blocks.chain_keys(prefix, bs)]
+    _, _, warm = paged.prefill_suffix_from_state(
+        eng.params, eng.state, cached, padded_ids(torch, suffixes[1], 64), 64, mcfg,
+        len(cached))
+    _, _, cold = model_runner.prefill_detached(eng.params, padded_ids(torch, prompt, 1024),
+                                               len(prompt), mcfg)
+    err_prefix = rel_err(warm, cold)
+    ttft_cold = runs[0]["ttft_ms"]
+    ttft_warm = statistics.median(r["ttft_ms"] for r in runs[1:])
+    print(f"  prefix: TTFT cold {ttft_cold:.2f} ms, warm median {ttft_warm:.2f} ms (all "
+          f"{[round(r['ttft_ms'], 2) for r in runs[1:]]}); warm first-token logits vs a "
+          f"cold whole prefill max|d| / max|ref| {err_prefix:.3e} (tol {PAGED_TOL}) "
+          f"[{card}]", flush=True)
+    if not err_prefix <= PAGED_TOL:
+        raise SystemExit("the prefix-cache suffix prefill disagrees with a whole prefill")
+    out.update(prefix=runs, ttft_cold_ms=ttft_cold, ttft_warm_ms=ttft_warm,
+               prefix_rel_err=err_prefix)
+
+    # ---- the prefix gate and the profile of one paged step ----
+    out["prefix_min_hit_tokens"] = eng._prefix_min_hit_tokens()
+    out["prefill_per_tok_ms"] = eng._prefill_per_tok_s * 1e3
+    out["host_rt_ms"] = eng._host_rt_s * 1e3
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    out["profile"] = paged_where_time_goes(torch, eng)
+    server.shutdown()
+
+    # ---- chunked prefill, 256 tokens a chunk, of a 960-token prompt ----
+    ids = random_ids(torch, gen, 960)
+    fa.reset_launch_count()
+    _, _, chunked = paged.chunked_prefill(eng.params, ids, mcfg, 256)
+    torch.cuda.synchronize()
+    chunk_launches = fa.launch_count()
+    _, _, whole = model_runner.prefill_detached(eng.params, padded_ids(torch, ids, 1024),
+                                                len(ids), mcfg)
+    err_chunk = rel_err(chunked, whole)
+    ceng = TorchLLMEngine(LLMConfig(model_source="llama3-8b", prefill_chunk=256,
+                                    **dict(PAGED, num_kv_blocks=64)), params=eng.params)
+    try:
+        fa.reset_launch_count()
+        served = solo_request(ceng, ids, 8)
+        torch.cuda.synchronize()
+        served["launches"] = fa.launch_count()
+    finally:
+        ceng.shutdown()
+    print(f"  chunked prefill of {len(ids)} tokens in chunks of 256: last logits vs the "
+          f"whole prefill max|d| / max|ref| {err_chunk:.3e} (tol {PAGED_TOL}), flash "
+          f"launches {chunk_launches}; served through the engine: TTFT "
+          f"{served['ttft_ms']:.2f} ms, flash launches {served['launches']} [{card}]",
+          flush=True)
+    if not err_chunk <= PAGED_TOL or chunk_launches or served["launches"]:
+        raise SystemExit("chunked prefill disagrees with the whole prefill (or took flash)")
+    out.update(chunked=dict(rel_err=err_chunk, launches=chunk_launches, served=served))
+
+    # ---- preemption: 4 concurrent 250-token prompts in a 36-block pool ----
+    peng = TorchLLMEngine(LLMConfig(model_source="llama3-8b", **dict(PAGED, num_kv_blocks=36)),
+                          params=eng.params)
+    prompts = [random_ids(torch, gen, 250) for _ in range(4)]
+    results, errors = [None] * 4, []
+
+    def run(i):
+        try:
+            results[i] = solo_request(peng, prompts[i], 64)
+        except BaseException as e:  # recorded and raised below
+            errors.append((i, repr(e)))
+
+    try:
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=run, args=(i,), daemon=True) for i in range(4)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        wall_s = time.perf_counter() - t0
+        alive = any(t.is_alive() for t in threads)
+    finally:
+        peng.shutdown()
+    pm = peng.metrics()
+    print(f"  preemption: 4 x 250-token prompts x 64 tokens in {pm['kv_blocks_total']} blocks: "
+          f"{pm['num_preemptions']} preemptions, {pm['kv_blocks_free']} blocks free after, "
+          f"{wall_s:.2f} s [{card}]", flush=True)
+    if alive or errors or None in results or pm["num_preemptions"] < 1 \
+            or pm["kv_blocks_free"] != pm["kv_blocks_total"]:
+        raise SystemExit(f"preemption run failed: errors {errors}, metrics {pm}")
+    out.update(preemption=dict(metrics=pm, wall_s=wall_s, requests=results))
+    del eng, ceng, peng
+    torch.cuda.empty_cache()
+    return out
+
+
+def paged_where_time_goes(torch, eng):
+    """torch.profiler over one detached prefill (bucket 512) and one paged
+    decode step of 32 slots of the served model."""
+    from ray_tpu_torch.llm import model_runner, paged
+
+    cfg, c = eng.model_config, eng.config
+    state = paged.init_paged_state(cfg, c.max_num_seqs, c.max_model_len,
+                                   c.max_num_seqs * c.max_model_len // c.kv_block_size,
+                                   c.kv_block_size)
+    tokens = torch.randint(3, 259, (1, 512), device="cuda")
+    last = torch.randint(3, 259, (c.max_num_seqs,), device="cuda")
+    active = torch.ones(c.max_num_seqs, dtype=torch.bool, device="cuda")
+    out = {
+        "prefill_detached_512": profile_once(torch, "prefill_detached_512", lambda: (
+            model_runner.prefill_detached(eng.params, tokens, 500, cfg))),
+        "decode_step_paged_32": profile_once(torch, "decode_step_paged_32", lambda: (
+            paged.decode_step_paged(eng.params, state, last, active, cfg))),
+    }
+    del state
+    return out
 
 
 SASS_OPS = ("HGMMA", "UTMALDG", "UTMASTG", "HMMA")  # wgmma, TMA load / store, mma.sync
@@ -847,15 +1125,26 @@ def main() -> int:
     train_timings, sdpa_bwd = training_timings(torch, fa)
 
     print("[3] serving path: llama3-8b served on the card", flush=True)
-    served = main_path(torch, fa, card)
+    served, params = main_path(torch, fa, card)
 
     print("[4] served model output against the plain path", flush=True)
     numerics = output_check(torch)
 
-    print("[5] training path: llama8b-geom2 trained on the card", flush=True)
-    trained = train_path(torch, fa, card)
+    print("[5] paged serving: llama3-8b with bench_serve's paged settings", flush=True)
+    paged_served = paged_path(torch, fa, card, params)
+    del params
+    torch.cuda.empty_cache()
 
-    print("[6] training gradients against the plain path", flush=True)
+    print("[6] training path: llama8b-geom2 trained on the card, remat dots and full",
+          flush=True)
+    trained_runs = {policy: train_path(torch, fa, card, policy) for policy in ("dots", "full")}
+    trained = trained_runs["dots"]  # bench.py's policy
+    print(f"  dots against full: step {trained['step_ms']:.2f} vs "
+          f"{trained_runs['full']['step_ms']:.2f} ms, MFU {trained['mfu_bf16_peak']:.4f} vs "
+          f"{trained_runs['full']['mfu_bf16_peak']:.4f}, peak {trained['peak_gib']:.2f} vs "
+          f"{trained_runs['full']['peak_gib']:.2f} GiB [{card}]", flush=True)
+
+    print("[7] training gradients against the plain path", flush=True)
     train_check = train_numerics(torch, fa)
 
     sources = {"flash_fwd": ("ray_tpu_torch/ops/csrc/flash_fwd.cu",
@@ -884,6 +1173,7 @@ def main() -> int:
             "shape": "B6 S2048 H32/8 D128 bf16 causal",
         })
     kernels[0]["launches_serving"] = served["launches"]
+    kernels[0]["launches_paged"] = paged_served["launches"]
     kernels[0]["design"] = (
         "bf16: a producer warpgroup keeps a 3-stage TMA ring of 128-row K/V tiles "
         "(mbarrier full/empty); two consumer warpgroups of 64 q rows run S = QK^T and "
@@ -907,8 +1197,9 @@ def main() -> int:
     report = dict(card=card, torch=torch.__version__, cuda=torch.version.cuda,
                   build_s=build_s, sass=sass, checks=checks, backward_checks=bwd_checks,
                   timings=timings, training_timings=train_timings, sdpa_backward=sdpa_bwd,
-                  served=served, numerics=numerics, trained=trained,
-                  train_numerics=train_check, kernels=kernels, total_s=total_s)
+                  served=served, numerics=numerics, paged=paged_served,
+                  trained=trained_runs, train_numerics=train_check, kernels=kernels,
+                  total_s=total_s)
     if json_path:
         os.makedirs(os.path.dirname(os.path.abspath(json_path)), exist_ok=True)
         with open(json_path, "w") as f:

@@ -1,9 +1,11 @@
 """LLM engine/server configuration (port of ray_tpu/llm/config.py).
 
-The JAX package's fields that this slice serves, and those that select what
-it does not serve yet: the slot KV layout on one device with whole-prompt
-prefill. The rest raises NotImplementedError naming its ROADMAP item at
-construction.
+The JAX package's fields that the port serves, and those that select what
+it does not serve yet: the slot and paged KV layouts (with the prefix cache)
+on one device, with whole-prompt or chunked prefill. The rest raises
+NotImplementedError naming its ROADMAP item at construction. The JAX engine's
+checks of the paged and chunked settings (ray_tpu/llm/engine.py:283-301) run
+here, at construction, with the same ValueErrors.
 The defaults the JAX package reads from its knob registry are constants here.
 """
 from __future__ import annotations
@@ -21,6 +23,8 @@ FUSED_STEPS = 0  # 0 = auto-tune the fused burst width
 FUSED_STEPS_MAX = 32
 FUSED_SYNC_TARGET = 0.15
 ENGINE_IDLE_WAIT_S = 0.05
+# cached-token floor of the prefix cache's pay-or-skip gate; 0 = auto
+PREFIX_MIN_HIT_TOKENS = 0
 
 
 @dataclasses.dataclass
@@ -56,12 +60,20 @@ class LLMConfig:
     max_model_len: int = MAX_MODEL_LEN  # KV capacity per slot
     prefill_buckets: Optional[List[int]] = None  # pad-to lengths; default powers of 2
     dtype: str = "bfloat16"
-    kv_layout: str = "slot"  # "paged": ROADMAP A2
-    prefill_chunk: Optional[int] = None  # ROADMAP A2
+    # "slot": max_model_len positions reserved per slot; "paged": one shared
+    # pool of kv_block_size-token blocks with per-slot block tables
+    kv_layout: str = "slot"
+    kv_block_size: int = 16
+    # total pool blocks; None = the slot layout's token capacity
+    num_kv_blocks: Optional[int] = None
+    # share full prompt blocks across requests (vLLM automatic prefix caching)
+    enable_prefix_caching: bool = True
+    # prompts longer than this prefill in chunks of it; None = whole prompt
+    prefill_chunk: Optional[int] = None
     # fused decode burst width; None = FUSED_STEPS (0 = auto-tune)
     num_decode_steps: Optional[int] = None
-    num_speculative_tokens: int = 0  # ROADMAP A2
-    speculative: Optional[Any] = None  # ROADMAP A2
+    num_speculative_tokens: int = 0  # ROADMAP A2d
+    speculative: Optional[Any] = None  # ROADMAP A2d
     quantization: Optional[str] = None  # ROADMAP A3
     tensor_parallel_size: int = 1  # > 1: ROADMAP A6
     data_parallel_size: int = 1
@@ -71,21 +83,27 @@ class LLMConfig:
     engine_kwargs: Dict[str, Any] = dataclasses.field(default_factory=dict)  # ModelConfig overrides
 
     def __post_init__(self):
-        if self.kv_layout == "paged":
-            raise NotImplementedError("kv_layout='paged' (paged KV, prefix cache): "
-                                      "ROADMAP A2")
-        if self.kv_layout != "slot":
+        if self.kv_layout not in ("slot", "paged"):
             raise ValueError(f"unknown kv_layout {self.kv_layout!r}")
         if self.num_speculative_tokens or self.speculative is not None:
-            raise NotImplementedError("speculative decoding: ROADMAP A2")
+            raise NotImplementedError("speculative decoding: ROADMAP A2d")
         if self.quantization:
             raise NotImplementedError("weight quantization: ROADMAP A3")
-        if self.prefill_chunk:
-            raise NotImplementedError("chunked prefill: ROADMAP A2")
         for name in ("tensor_parallel_size", "data_parallel_size",
                      "expert_parallel_size", "pipeline_parallel_size"):
             if getattr(self, name) != 1:
                 raise NotImplementedError(f"{name} > 1: ROADMAP A6")
+        if self.kv_layout == "paged":
+            if self.max_model_len % self.kv_block_size:
+                raise ValueError("max_model_len must be a multiple of kv_block_size")
+            if any(b % self.kv_block_size for b in self.buckets()):
+                raise ValueError("every prefill bucket must be a multiple of kv_block_size")
+            if self.prefill_chunk and self.prefill_chunk % self.kv_block_size:
+                raise ValueError("prefill_chunk must be a multiple of kv_block_size "
+                                 "(chunked KV installs block-by-block)")
+        if self.prefill_chunk and self.max_model_len % self.prefill_chunk:
+            # a chunk-padded prompt never exceeds max_model_len
+            raise ValueError("max_model_len must be a multiple of prefill_chunk")
 
     def resolve_decode_steps(self) -> int:
         """Configured fused burst width; 0 means auto-tune (engine-side)."""

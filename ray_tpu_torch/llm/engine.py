@@ -1,21 +1,28 @@
 """LLMEngine ABC + TorchLLMEngine: continuous batching on one CUDA device
-(port of ray_tpu/llm/engine.py, slot layout).
+(port of ray_tpu/llm/engine.py, slot and paged layouts).
 
 A scheduler thread (1) admits waiting requests into free cache slots with a
-whole-prompt prefill padded to a bucket, (2) advances every active slot with
-one decode step, or a fused K-step decode+sample burst with one host sync, and
-(3) streams tokens out through per-request queues. Requests admit, retire and
-abort at burst boundaries without draining the batch, and a per-slot step
-budget keeps one near-finished request from collapsing the burst width.
+whole-prompt prefill padded to a bucket, or a chunked one, (2) advances every
+active slot with one decode step, or a fused K-step decode+sample burst with
+one host sync, and (3) streams tokens out through per-request queues.
+Requests admit, retire and abort at burst boundaries without draining the
+batch, and a per-slot step budget keeps one near-finished request from
+collapsing the burst width.
 
-Paged KV with the prefix cache, chunked prefill, P/D disaggregation and
-speculation (ROADMAP A2), pipeline parallelism (A6) and telemetry (A11) are
-later slices.
+With kv_layout="paged" the KV lives in a shared block pool (llm/paged.py):
+blocks are allocated at admission and grown before each burst; a dry pool
+preempts the youngest request, which is prefilled again later from its token
+history; full prompt blocks are shared through the prefix cache when the hit
+pays for itself (the pay-or-skip gate).
+
+P/D disaggregation and speculation (ROADMAP A2d, A2e), pipeline parallelism
+(A6) and telemetry (A11) are later slices.
 """
 from __future__ import annotations
 
 import abc
 import dataclasses
+import itertools
 import logging
 import queue
 import threading
@@ -30,7 +37,8 @@ from ray_tpu_torch.device import resolve_device
 from ray_tpu_torch.models import llama
 from ray_tpu_torch.models.config import torch_dtype
 
-from . import model_runner
+from . import model_runner, paged
+from . import config as llm_config
 from .config import (ENGINE_IDLE_WAIT_S, FUSED_STEPS_MAX, FUSED_SYNC_TARGET,
                      LLMConfig, SamplingParams)
 from .tokenizer import get_tokenizer
@@ -78,10 +86,15 @@ class _Request:
         self.out_queue: "queue.Queue[RequestOutput]" = queue.Queue()
         self.generated = 0
         self.slot = -1
+        # prompt + every emitted token: a preempted request is prefilled
+        # again from it
+        self.token_history: List[int] = list(prompt_ids)
+        self.admitted_at = 0  # admission order; preemption takes the youngest
+        self.prefill_tokens = 0  # tokens the last admission's prefill computed
 
 
 class TorchLLMEngine(LLMEngine):
-    """Slot-based continuous batching over model_runner's prefill/decode.
+    """Continuous batching over model_runner's (slot) or paged's prefill/decode.
 
     `params` (a llama parameter dict of tensors) replaces the random init from
     seed 0; either way the weights are stored in ``config.dtype`` at start.
@@ -107,14 +120,20 @@ class TorchLLMEngine(LLMEngine):
         # here, so a stale abort can never poison a later request reusing the id
         self._requests: Dict[str, _Request] = {}
         self._aborted: set = set()
-        self.state: Optional[model_runner.DecodeState] = None
+        self.state = None  # model_runner.DecodeState | paged.PagedState
+        self._blocks = None  # paged: the host-side block manager
+        self._pops: Optional[paged.PagedOps] = None
+        self._admissions = itertools.count(1)
         self._fused_auto = False
         self._fused_fixed = 1
         self._host_rt_s = 0.0  # measured tiny dispatch+fetch round trip
         self._step_s = 0.0  # EWMA of per-decode-step device time
+        self._prefill_per_tok_s = 0.0  # EWMA of prefill time per computed token
         self._k_seen: set = set()  # burst widths already run (first is warm-up)
         self.num_prefills = 0
         self.total_generated = 0
+        self.num_preemptions = 0
+        self.num_prefix_skipped = 0
 
     # -- lifecycle ---------------------------------------------------------------
     def start(self) -> None:
@@ -153,7 +172,17 @@ class TorchLLMEngine(LLMEngine):
             if self._loop_thread is not None:
                 return
             c = self.config
-            if self.state is None:
+            if self.state is None and c.kv_layout == "paged":
+                num_blocks = c.num_kv_blocks or (
+                    c.max_num_seqs * c.max_model_len // c.kv_block_size)
+                self._blocks = paged.make_block_manager(
+                    num_blocks, c.kv_block_size, c.max_model_len // c.kv_block_size,
+                    c.max_num_seqs, enable_prefix_caching=c.enable_prefix_caching)
+                self._pops = paged.PagedOps(self.model_config)
+                self.state = paged.init_paged_state(
+                    self.model_config, c.max_num_seqs, c.max_model_len, num_blocks,
+                    c.kv_block_size, self.device)
+            elif self.state is None:
                 self.state = model_runner.init_state(
                     self.model_config, c.max_num_seqs, c.max_model_len, self.device)
             self._measure_host_rt()
@@ -271,6 +300,24 @@ class TorchLLMEngine(LLMEngine):
             finished=True, finish_reason=last.finish_reason,
             num_prompt_tokens=last.num_prompt_tokens, num_generated_tokens=len(ids))
 
+    def metrics(self) -> Dict[str, Any]:
+        """The paged-KV counters of the JAX engine's metrics(): preemptions,
+        skipped prefix hits and, with kv_layout="paged", the pool's
+        occupancy and the prefix cache's hits."""
+        out: Dict[str, Any] = {"num_preemptions": self.num_preemptions,
+                               "num_prefix_skipped": self.num_prefix_skipped}
+        blocks = self._blocks
+        if blocks is not None:
+            total, free = blocks.total_blocks, blocks.num_free
+            out.update({
+                "kv_blocks_total": total,
+                "kv_blocks_free": free,
+                "kv_pool_occupancy": (total - free) / total if total else 0.0,
+                "prefix_cache_hit_tokens": blocks.hit_tokens,
+                "prefix_cached_blocks": len(blocks.cached),
+            })
+        return out
+
     def abort(self, request_id: str) -> None:
         """Cancel a request: a waiting one is failed at admission; an active
         one frees its slot at the next scheduler tick."""
@@ -311,9 +358,11 @@ class TorchLLMEngine(LLMEngine):
             self._aborted.discard(req.id)
 
     def _admit(self) -> None:
-        """Whole-prompt prefill of waiting requests into free slots (the
-        slot-layout branch of the JAX engine's ``_admit_inner``)."""
-        cfg = self.model_config
+        """Prefill waiting requests into free slots (the JAX engine's
+        ``_admit_inner``): into blocks (paged), chunk by chunk into a slot, or
+        whole into a slot. A paged request the pool cannot take yet goes back
+        to the queue, and admission stops for this cycle."""
+        cfg, c = self.model_config, self.config
         for slot in [s for s, r in self._active.items() if r is None]:
             try:
                 req = self._waiting.get_nowait()
@@ -328,18 +377,209 @@ class TorchLLMEngine(LLMEngine):
             # visible to the loop's crash handler: in neither _waiting nor _active
             self._admitting = req
             p = req.params
-            tokens = self._pad_to_bucket(req.prompt_ids)
-            self.state, last_logits = model_runner.prefill(
-                self.params, self.state, tokens, len(req.prompt_ids), slot, cfg)
+            t0 = time.perf_counter()
+            req.prefill_tokens = len(req.prompt_ids)
+            if c.kv_layout == "paged":
+                tok = self._prefill_paged(req, slot)
+                if tok is None:
+                    self._admitting = None
+                    return  # requeued (pool busy) or failed: stop admitting
+            elif c.prefill_chunk and len(req.prompt_ids) > c.prefill_chunk:
+                # chunked prefill into a slot: bounded activation memory, then
+                # the assembled KV is installed at once
+                k, v, last_logits = self._prefill_kv_tensors(req.prompt_ids)
+                self.state = model_runner.install_kv(self.state, k, v,
+                                                     len(req.prompt_ids), slot)
+                tok = self._sample_one(last_logits, p)
+            else:
+                tokens = self._pad_to_bucket(req.prompt_ids)
+                self.state, last_logits = model_runner.prefill(
+                    self.params, self.state, tokens, len(req.prompt_ids), slot, cfg)
+                tok = self._sample_one(last_logits, p)
+            self._note_prefill(req, time.perf_counter() - t0)
             self.num_prefills += 1
-            tok = self._sample_one(last_logits, p)
             req.slot = slot
+            req.admitted_at = next(self._admissions)
             self._active[slot] = req
             self._temp[slot], self._top_p[slot], self._top_k[slot] = (
                 p.temperature, p.top_p, p.top_k)
             self._last_tokens[slot] = tok
             self._admitting = None
             self._emit(req, tok)
+
+    def _note_prefill(self, req: _Request, wall_s: float) -> None:
+        """Fold one admission's prefill wall time into the per-computed-token
+        EWMA that the prefix cache's pay-or-skip gate reads (the dispatch
+        round trip subtracted). A first call's warm-up inflates it, which
+        only biases the gate toward using the cache."""
+        per_tok = max((wall_s - self._host_rt_s) / max(1, req.prefill_tokens), 1e-9)
+        self._prefill_per_tok_s = per_tok if self._prefill_per_tok_s <= 0 else (
+            0.3 * per_tok + 0.7 * self._prefill_per_tok_s)
+
+    # -- paged KV (ray_tpu/llm/engine.py:1195-1450) --------------------------------
+    def _prefill_kv_tensors(self, prompt: List[int]):
+        """(k, v, last_logits) of a prompt: chunked when it is longer than
+        prefill_chunk, else one detached prefill padded to a bucket."""
+        cfg, c = self.model_config, self.config
+        if c.prefill_chunk and len(prompt) > c.prefill_chunk:
+            return paged.chunked_prefill(self.params, prompt, cfg, c.prefill_chunk,
+                                         self.device)
+        return model_runner.prefill_detached(self.params, self._pad_to_bucket(prompt),
+                                             len(prompt), cfg)
+
+    @staticmethod
+    def _pad_blocks(k: torch.Tensor, v: torch.Tensor, n_blocks: int, bs: int):
+        """Zero-pad prefill KV [L, 1, S, ...] along S to n_blocks * bs rows."""
+        extra = n_blocks * bs - k.shape[2]
+        if extra <= 0:
+            return k, v
+        pad = (0, 0, 0, 0, 0, extra)
+        return torch.nn.functional.pad(k, pad), torch.nn.functional.pad(v, pad)
+
+    def _install_paged(self, slot: int, k, v, n: int, needed: int) -> None:
+        """Allocate `needed` blocks (the caller checked that they are free)
+        and install the prefill KV [L, 1, S_pad, ...] into them."""
+        bs = self.config.kv_block_size
+        block_ids = self._blocks.allocate(slot, needed)
+        k, v = self._pad_blocks(k, v, needed, bs)
+        self.state = self._pops.install_prefill(self.state, k, v, block_ids, n, slot,
+                                                needed)
+
+    def _prefill_paged(self, req: _Request, slot: int) -> Optional[int]:
+        """Prefill into allocated blocks -> the first sampled token, or None
+        when the request was not admitted (requeued or failed). With the
+        prefix cache, a prompt that shares full leading blocks with an
+        earlier one skips their recomputation: the cached blocks join the
+        slot's table by reference and the model runs only over the suffix."""
+        c = self.config
+        prompt = req.token_history if req.generated else req.prompt_ids
+        n = len(prompt)
+        chunk, bs = c.prefill_chunk, c.kv_block_size
+        cached_ids: List[int] = []
+        min_hit = self._prefix_min_hit_tokens()
+        max_hit = ((n - 1) // bs) * bs  # full blocks; the last token is always computed
+        if c.enable_prefix_caching and max_hit >= bs:
+            # pay-or-skip: use the cache only when the tokens it saves
+            # (hit x measured per-token prefill) clear one dispatch round trip
+            if max_hit < min_hit:
+                self.num_prefix_skipped += 1
+            else:
+                cached_ids = self._blocks.match_prefix(slot, prompt)
+                if cached_ids and len(cached_ids) * bs < min_hit:
+                    self._blocks.release(slot)  # detach: the hit is too small to pay
+                    cached_ids = []
+                    self.num_prefix_skipped += 1
+        req.prefill_tokens = n - len(cached_ids) * bs
+        if cached_ids:
+            if not chunk or req.prefill_tokens <= chunk:
+                return self._prefill_with_prefix(req, slot, prompt, cached_ids)
+            # the suffix is still too long for one pass: chunked prefill of
+            # the whole prompt, with the attached prefix released
+            self._blocks.release(slot)
+            req.prefill_tokens = n
+        s_pad = (-(-n // chunk) * chunk if chunk and n > chunk
+                 else next(b for b in c.buckets() if b >= n))
+        needed = self._blocks.blocks_needed(max(n + 1, s_pad))
+        if needed > self._blocks.max_fit(slot):
+            self._fail_request(req, "length")  # can never fit
+            return None
+        if not self._blocks.can_allocate(needed):
+            self._waiting.put(req)  # stays pending; retried next cycle
+            return None
+        k, v, last_logits = self._prefill_kv_tensors(prompt)
+        self._install_paged(slot, k, v, n, needed)
+        # publish the prompt's full blocks for later prefix hits, unless no
+        # hit of this size could pay (a longer prompt shares <= max_hit tokens)
+        if max_hit >= min_hit:
+            self._blocks.register_blocks(slot, prompt, self._blocks.owned[slot],
+                                         skip_blocks=0)
+        return self._sample_one(last_logits, req.params)
+
+    def _prefix_min_hit_tokens(self) -> int:
+        """Cached-token floor below which a prefix hit is skipped:
+        PREFIX_MIN_HIT_TOKENS when > 0, else auto, the hit must save one
+        dispatch round trip of prefill compute (hit x per-token prefill >=
+        host round trip). Unmeasured timings keep the cache on."""
+        fixed = llm_config.PREFIX_MIN_HIT_TOKENS
+        if fixed > 0:
+            return fixed
+        rt, per_tok = self._host_rt_s, self._prefill_per_tok_s
+        if rt <= 0 or per_tok <= 0:
+            return 0
+        return int(rt / per_tok)
+
+    def _prefill_with_prefix(self, req: _Request, slot: int, prompt: List[int],
+                             cached_ids: List[int]) -> Optional[int]:
+        """Prefill the suffix over the cached blocks' KV and install it into
+        new blocks; the slot's table holds the cached ids, then the new."""
+        c = self.config
+        bs, n = c.kv_block_size, len(prompt)
+        cached_tokens = len(cached_ids) * bs
+        suffix = prompt[cached_tokens:]
+        tokens = self._pad_to_bucket(suffix)
+        s_pad = tokens.shape[1]
+        needed_new = self._blocks.blocks_needed(max(n + 1 - cached_tokens, s_pad))
+        total = len(cached_ids) + needed_new
+        if total > self._blocks.max_fit(slot):
+            self._blocks.release(slot)  # undo the attached prefix refs
+            self._fail_request(req, "length")
+            return None
+        if not self._blocks.can_allocate(needed_new):
+            self._blocks.release(slot)
+            self._waiting.put(req)
+            return None
+        k_suf, v_suf, last_logits = self._pops.prefill_suffix_from_state(
+            self.params, self.state, cached_ids, tokens, len(suffix), len(cached_ids))
+        new_ids = self._blocks.allocate(slot, needed_new)
+        k_suf, v_suf = self._pad_blocks(k_suf, v_suf, needed_new, bs)
+        row = np.zeros((self._blocks.max_blocks,), np.int64)
+        row[:total] = cached_ids + new_ids
+        self.state = self._pops.install_with_prefix(
+            self.state, k_suf, v_suf, new_ids, row, n, slot, needed_new)
+        self._blocks.register_blocks(slot, prompt, cached_ids + new_ids,
+                                     skip_blocks=len(cached_ids))
+        self._blocks.hit_tokens += cached_tokens  # counted only on success
+        return self._sample_one(last_logits, req.params)
+
+    def _grow_or_preempt(self, headroom: int = 1, steps=None) -> None:
+        """Before a decode burst: every active slot whose writes in the burst
+        cross into an unallocated block gets one; when the pool is dry, the
+        YOUNGEST request is preempted (its blocks freed, the request queued
+        again and later prefilled from its token history). The tables stay
+        frozen during a fused burst, so headroom = K reserves its room;
+        `steps` (the per-slot plan of _burst_plan) caps each slot's
+        reservation at the steps it will take."""
+        bs = self.config.kv_block_size
+        for slot in list(self._active):
+            req = self._active[slot]
+            if req is None:
+                continue
+            # host mirror of state.lengths: prompt + generated - 1 is the
+            # next write position
+            next_write = len(req.prompt_ids) + req.generated - 1
+            slot_headroom = min(headroom, int(steps[slot])) if steps is not None else headroom
+            # capped at the table width; re-checked each round, since this
+            # request may itself have been preempted
+            target = min(next_write + slot_headroom, self.config.max_model_len)
+            while (self._active[slot] is req
+                   and target - 1 >= self._blocks.slot_capacity(slot)):
+                if self._blocks.num_free > 0:
+                    (bid,) = self._blocks.allocate(slot, 1)
+                    index = self._blocks.slot_capacity(slot) // bs - 1
+                    self.state = self._pops.append_block(self.state, slot, index, bid)
+                    continue
+                victim = max((r for r in self._active.values() if r is not None),
+                             key=lambda r: r.admitted_at)
+                self._preempt(victim)
+                if victim is req:
+                    break  # this slot's request was the victim
+
+    def _preempt(self, req: _Request) -> None:
+        self.num_preemptions += 1
+        self._blocks.release(req.slot)
+        self._active[req.slot] = None
+        req.slot = -1
+        self._waiting.put(req)
 
     def _sample_one(self, last_logits: torch.Tensor, p: SamplingParams) -> int:
         dev = self.device
@@ -352,6 +592,7 @@ class TorchLLMEngine(LLMEngine):
 
     def _emit(self, req: _Request, tok: int) -> None:
         req.generated += 1
+        req.token_history.append(tok)
         with self._lock:
             self.total_generated += 1
         stops = req.params.stop_token_ids or [self.tokenizer.eos_token_id]
@@ -371,6 +612,8 @@ class TorchLLMEngine(LLMEngine):
 
     def _release(self, req: _Request) -> None:
         if req.slot >= 0:
+            if self._blocks is not None:
+                self._blocks.release(req.slot)
             self._active[req.slot] = None
             req.slot = -1
             with self._lock:
@@ -380,9 +623,12 @@ class TorchLLMEngine(LLMEngine):
     def _step_decode(self) -> None:
         cfg, dev = self.model_config, self.device
         k_steps, steps = self._burst_plan()
+        if self._blocks is not None:
+            self._grow_or_preempt(headroom=k_steps, steps=steps)
+            k_steps, steps = self._burst_plan()  # preemption changed the set
         active_mask = np.array([r is not None for r in self._active.values()], bool)
         if not active_mask.any():
-            return
+            return  # preemption may have drained every slot
         t0 = time.perf_counter()
         last = torch.from_numpy(self._last_tokens).to(dev)
         active = torch.from_numpy(active_mask).to(dev)
@@ -391,13 +637,23 @@ class TorchLLMEngine(LLMEngine):
         top_k = torch.from_numpy(self._top_k).to(dev)
         if k_steps > 1:
             # fused burst: K decode+sample steps, ONE host sync
-            self.state, toks_k = model_runner.decode_multi(
-                self.params, self.state, last, active, cfg, k_steps, temp, top_p,
-                top_k, torch.from_numpy(steps).to(dev), self._gen)
+            steps_left = torch.from_numpy(steps).to(dev)
+            if self._blocks is not None:
+                self.state, toks_k = self._pops.decode_multi(
+                    self.params, self.state, last, active, k_steps, temp, top_p, top_k,
+                    steps_left, self._gen)
+            else:
+                self.state, toks_k = model_runner.decode_multi(
+                    self.params, self.state, last, active, cfg, k_steps, temp, top_p,
+                    top_k, steps_left, self._gen)
             toks_burst = toks_k.cpu().numpy()  # [K, slots] — the only fetch
         else:
-            self.state, logits = model_runner.decode_step(
-                self.params, self.state, last, active, cfg)
+            if self._blocks is not None:
+                self.state, logits = self._pops.decode_step(self.params, self.state,
+                                                            last, active)
+            else:
+                self.state, logits = model_runner.decode_step(
+                    self.params, self.state, last, active, cfg)
             toks_burst = model_runner.sample_tokens(
                 logits, temp, top_p, top_k, self._gen).cpu().numpy()[None, :]
         self._note_burst_device_wall(k_steps, time.perf_counter() - t0)
@@ -450,6 +706,9 @@ class TorchLLMEngine(LLMEngine):
                             request_id=req.id, token_ids=[], finished=True,
                             finish_reason="error"))
                         self._release(req)
+                if self._blocks is not None:  # blocks a failed admission held
+                    for slot in self._active:
+                        self._blocks.release(slot)
                 while True:
                     try:
                         req = self._waiting.get_nowait()

@@ -1,5 +1,7 @@
 """Prefill/decode over a slot-based device-resident KV cache
-(port of ray_tpu/llm/model_runner.py, slot layout).
+(port of ray_tpu/llm/model_runner.py, slot layout). The layer body of a
+decode step is shared with the paged layout (llm/paged.py) through a cache
+adapter, as in the JAX package.
 
 The cache is a static [L, slots, max_len, kv_heads, head_dim] tensor with a
 per-slot ``lengths`` vector that masks attention and indexes the writes. Slots
@@ -73,11 +75,41 @@ def prefill(
     return state, logits[0, true_len - 1].float()
 
 
+@torch.no_grad()
+def prefill_detached(
+    params,
+    tokens: torch.Tensor,  # [1, S_pad] int
+    true_len: int,
+    cfg: ModelConfig,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Prefill WITHOUT a decode state -> (k, v, last_logits [vocab] f32), k/v
+    [L, 1, S_pad, KV, HD] in the activation dtype. The paged layout installs
+    them into blocks; a chunk-assembled prompt goes to a slot via install_kv.
+    Attention is causal self-attention over S_pad, the flash kernel's case on
+    CUDA."""
+    cache = llama.init_kv_cache(cfg, batch=1, max_len=tokens.shape[1], device=tokens.device)
+    logits, cache = llama.forward(params, tokens, cfg, cache=cache)
+    return cache.k, cache.v, logits[0, true_len - 1].float()
+
+
+@torch.no_grad()
+def install_kv(state: DecodeState, k: torch.Tensor, v: torch.Tensor, true_len: int,
+               slot: int) -> DecodeState:
+    """Copy prefill KV [L, 1, S_pad, KV, HD] into `slot` (in place)."""
+    s_pad = k.shape[2]
+    state.k[:, slot, :s_pad] = k[:, 0].to(state.k.dtype)
+    state.v[:, slot, :s_pad] = v[:, 0].to(state.v.dtype)
+    state.lengths[slot] = true_len
+    return state
+
+
 # -------------------------------------------------------------------------- decode
 
-def _decode_core(x, lp, cfg: ModelConfig, lengths, ck, cv):
-    """One layer's single-token decode for every slot. x [S,1,D]; ck/cv
-    [S,max_len,KV,HD] are written at position lengths[s] in place."""
+def _decode_core(x, lp, cfg: ModelConfig, lengths, cache_rw):
+    """One layer's single-token decode for every slot, shared by every cache
+    layout. x [S,1,D]. cache_rw(k_new [S,KV,HD], v_new) writes this step's K/V
+    into its layout in place and returns per-slot full-history views
+    (ck, cv) [S,max_len,KV,HD] for attention."""
     dt = x.dtype
     s = x.shape[0]
     kvh, hd = cfg.n_kv_heads, cfg.head_dim
@@ -91,9 +123,7 @@ def _decode_core(x, lp, cfg: ModelConfig, lengths, ck, cv):
     q = llama.rope(q, pos, cfg.rope_theta)
     k = llama.rope(k, pos, cfg.rope_theta)
 
-    rows = torch.arange(s, device=x.device)
-    ck[rows, lengths] = k[:, 0].to(ck.dtype)
-    cv[rows, lengths] = vv[:, 0].to(cv.dtype)
+    ck, cv = cache_rw(k[:, 0], vv[:, 0])
     max_len = ck.shape[1]
 
     qg = q[:, 0].reshape(s, kvh, g, hd) * (hd ** -0.5)
@@ -113,6 +143,19 @@ def _decode_core(x, lp, cfg: ModelConfig, lengths, ck, cv):
     return x + down
 
 
+def _slot_rw(ck, cv, lengths):
+    """The slot layout's cache adapter: ck/cv [S,max_len,KV,HD], this step's
+    K/V written at position lengths[s]."""
+    rows = torch.arange(ck.shape[0], device=ck.device)
+
+    def cache_rw(k_new, v_new):
+        ck[rows, lengths] = k_new.to(ck.dtype)
+        cv[rows, lengths] = v_new.to(cv.dtype)
+        return ck, cv
+
+    return cache_rw
+
+
 @torch.no_grad()
 def decode_step(
     params,
@@ -126,14 +169,22 @@ def decode_step(
     Inactive slots still flow through the matmuls, and their cache write lands
     at lengths[s] of a slot whose contents the next prefill overwrites; their
     length does not advance. Cache and lengths are updated in place."""
+    logits = _decode_layers(params, tokens, active, cfg, state.lengths,
+                            lambda i: _slot_rw(state.k[i], state.v[i], state.lengths))
+    return state, logits
+
+
+def _decode_layers(params, tokens, active, cfg: ModelConfig, lengths, layer_rw):
+    """A decode step's model pass over any cache layout: layer_rw(i) is layer
+    i's cache adapter. Advances the active slots' lengths in place; returns
+    logits [slots, vocab] f32."""
     x = params["embed"][tokens[:, None]].to(cfg.activation_dtype)  # [S,1,D]
     for i in range(cfg.n_layers):
-        x = _decode_core(x, llama.layer_params(params, i), cfg, state.lengths,
-                         state.k[i], state.v[i])
+        x = _decode_core(x, llama.layer_params(params, i), cfg, lengths, layer_rw(i))
     x = llama.rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = torch.einsum("sld,dv->slv", x, llama.lm_head(params, cfg))[:, 0]
-    state.lengths.add_(active.to(state.lengths.dtype))
-    return state, logits.float()
+    lengths.add_(active.to(lengths.dtype))
+    return logits.float()
 
 
 @torch.no_grad()
@@ -157,11 +208,19 @@ def decode_multi(
     its max_tokens/KV budget stops at its own limit without capping the burst
     for everyone. Only the first steps_left[s] rows of the result are
     meaningful for slot s."""
+    return _burst(lambda st, toks, act: decode_step(params, st, toks, act, cfg), state,
+                  tokens, active, n_steps, temperature, top_p, top_k, steps_left, generator)
+
+
+def _burst(step, state, tokens, active, n_steps, temperature, top_p, top_k, steps_left,
+           generator):
+    """The fused burst over any layout's step(state, tokens, active) ->
+    (state, logits)."""
     toks = tokens.long()
     out = []
     for t in range(n_steps):
         act_t = active & (t < steps_left)
-        state, logits = decode_step(params, state, toks, act_t, cfg)
+        state, logits = step(state, toks, act_t)
         nxt = sampling.sample(logits, temperature, top_p, top_k, generator)
         toks = torch.where(act_t, nxt, toks)
         out.append(toks)

@@ -10,21 +10,25 @@ RMSNorm, rotate-half RoPE (HF convention), GQA, SwiGLU.
 Training: ``loss_fn`` is next-token cross entropy, differentiated by
 autograd; attention's gradient goes through the flash kernels' autograd
 Function on CUDA. ``remat_policy`` ``full`` recomputes each layer in the
-backward pass (``torch.utils.checkpoint``).
+backward pass (``torch.utils.checkpoint``); ``dots`` and ``dots_no_batch``
+save the layer's matrix products and recompute the rest (selective
+checkpointing).
 
 Branches of the JAX module that the port does not run yet raise
 NotImplementedError naming their ROADMAP item: MoE (A3), ring/ulysses
-attention and pipeline stages (A6), the ``dots`` remat policies (A1b). The
-one-hot embedding branch exists only for tensor-parallel vocab sharding (A6),
-which the port does not have yet, so the gather is the whole lookup.
+attention and pipeline stages (A6). The one-hot embedding branch exists only
+for tensor-parallel vocab sharding (A6), which the port does not have yet, so
+the gather is the whole lookup.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ray_tpu_torch.device import resolve_device
 from ray_tpu_torch.ops.attention import attention
@@ -132,22 +136,47 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor
     return out.to(x.dtype)
 
 
+_DOTS = (torch.ops.aten.mm, torch.ops.aten.addmm, torch.ops.aten.bmm)
+
+
+def _save_dots(batch_dims: bool):
+    """Selective-checkpoint policy that saves matrix products. The layers'
+    einsums run as aten.bmm: a projection "bsd,dhk->bshk" with batch 1, the
+    plain attention's "bqhd,bkhd->bhqk" with batch B*H. So JAX's
+    checkpoint_dots is every mm, addmm and bmm (batch_dims=True), and
+    dots_with_no_batch_dims_saveable is mm, addmm and a bmm of batch 1."""
+
+    def policy(ctx, op, *args, **kwargs):
+        packet = op.overloadpacket
+        if packet in _DOTS and (batch_dims or packet is not torch.ops.aten.bmm
+                                or args[0].shape[0] == 1):
+            return CheckpointPolicy.MUST_SAVE
+        return CheckpointPolicy.PREFER_RECOMPUTE
+
+    return policy
+
+
 def _maybe_remat(body, cfg: ModelConfig):
     """Per-layer rematerialization (ray_tpu/models/llama.py:115-130). 'full'
     saves only the layer's input and recomputes the layer in the backward pass;
-    'none' (or remat=False) keeps every activation."""
+    'dots' saves every matrix product's output and recomputes the elementwise
+    ops, 'dots_no_batch' saves only the products without batch dimensions;
+    'none' (or remat=False) keeps every activation. The flash attention
+    Function's output is not a product: it is recomputed under both dots
+    policies, as the pallas_call is under JAX's."""
     policy = getattr(cfg, "remat_policy", "full")
     if not cfg.remat or policy == "none":
         return body
-    if policy in ("dots", "dots_no_batch"):
-        raise NotImplementedError(
-            f"remat_policy={policy!r} (save the matmul outputs): ROADMAP A1b")
-    if policy != "full":
+    if policy not in ("full", "dots", "dots_no_batch"):
         raise ValueError(
             f"unknown remat_policy {policy!r} (expected full | dots | dots_no_batch | none)")
+    kw = {}
+    if policy != "full":
+        kw["context_fn"] = functools.partial(create_selective_checkpoint_contexts,
+                                             _save_dots(policy == "dots"))
 
     def remat(*args):
-        return checkpoint(body, *args, use_reentrant=False, preserve_rng_state=False)
+        return checkpoint(body, *args, use_reentrant=False, preserve_rng_state=False, **kw)
 
     return remat
 

@@ -57,7 +57,7 @@ def test_no_jax_or_ray_tpu_import_in_the_sources():
 def _entry_point(name):
     from ray_tpu_torch.device import resolve_device
     from ray_tpu_torch.llm import LLMConfig, LLMServer, TorchLLMEngine
-    from ray_tpu_torch.llm import model_runner
+    from ray_tpu_torch.llm import model_runner, paged
     from ray_tpu_torch.models import config, llama
 
     from ray_tpu_torch import train
@@ -69,12 +69,14 @@ def _entry_point(name):
             "LLMServer": lambda: LLMServer(LLMConfig()),
             "llama.init": lambda: llama.init(tiny),
             "init_state": lambda: model_runner.init_state(tiny, 1, 16),
+            "init_paged_state": lambda: paged.init_paged_state(tiny, 1, 16, 2, 16),
             "train.init_state": lambda: train.init_state(tiny, tx),
             "make_train_step": lambda: train.make_train_step(tiny, tx)}[name]
 
 
 @pytest.mark.parametrize("name", ["resolve_device", "TorchLLMEngine", "LLMServer",
-                                  "llama.init", "init_state", "train.init_state",
+                                  "llama.init", "init_state", "init_paged_state",
+                                  "train.init_state",
                                   "make_train_step"])
 def test_entry_points_default_to_cuda_and_refuse_a_silent_cpu(monkeypatch, name):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

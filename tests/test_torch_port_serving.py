@@ -366,12 +366,43 @@ def test_loop_crash_fails_in_flight_requests_and_keeps_serving(pt_params, monkey
         eng.shutdown()
 
 
-@pytest.mark.parametrize("kw", [dict(kv_layout="paged"), dict(num_speculative_tokens=2),
+@pytest.mark.parametrize("kw", [dict(kv_layout="paged", data_parallel_size=2),
+                                dict(num_speculative_tokens=2),
                                 dict(quantization="int8"), dict(tensor_parallel_size=2),
-                                dict(prefill_chunk=64)])
+                                dict(kv_layout="paged", pipeline_parallel_size=2)])
 def test_config_refuses_what_the_slice_does_not_serve(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP A"):
         LLMConfig(**kw)
+
+
+@pytest.mark.parametrize("kw,match", [
+    (dict(kv_layout="paged", max_model_len=1000), "max_model_len must be a multiple of kv_block_size"),
+    (dict(kv_layout="paged", prefill_buckets=[24, 1024]), "every prefill bucket"),
+    (dict(kv_layout="paged", prefill_chunk=40), "prefill_chunk must be a multiple of kv_block_size"),
+    (dict(kv_layout="paged", prefill_chunk=96), "max_model_len must be a multiple of prefill_chunk"),
+    (dict(prefill_chunk=96), "max_model_len must be a multiple of prefill_chunk"),
+    (dict(kv_layout="ring"), "unknown kv_layout")])
+def test_config_rejects_what_the_jax_engine_rejects(kw, match):
+    """The JAX engine's checks of the paged and chunked settings
+    (ray_tpu/llm/engine.py:283-301), with its messages; the JAX config takes
+    the same fields."""
+    with pytest.raises(ValueError, match=match):
+        LLMConfig(**kw)
+    JaxLLMConfig(**{k: v for k, v in kw.items() if k != "kv_layout" or v != "ring"})
+
+
+def test_config_takes_the_jax_paged_fields():
+    """bench_serve.py's engine settings; and the defaults."""
+    kw = dict(kv_layout="paged", kv_block_size=32, num_kv_blocks=100,
+              enable_prefix_caching=False, prefill_chunk=256, max_model_len=1024,
+              max_num_seqs=32, prefill_buckets=[32, 64, 128, 256, 512, 1024])
+    ours, theirs = LLMConfig(**kw), JaxLLMConfig(**kw)
+    assert [getattr(ours, k) for k in kw] == [getattr(theirs, k) for k in kw]
+    assert ours.buckets() == theirs.buckets()
+    fields = ("kv_layout", "kv_block_size", "num_kv_blocks", "enable_prefix_caching",
+              "prefill_chunk")
+    ours, theirs = LLMConfig(max_num_seqs=2), JaxLLMConfig(max_num_seqs=2)
+    assert [getattr(ours, k) for k in fields] == [getattr(theirs, k) for k in fields]
 
 
 @pytest.mark.parametrize("max_model_len", [64, 100, 1024])
@@ -388,6 +419,7 @@ def test_defaults_are_the_jax_knob_defaults():
                        ("RAY_TPU_LLM_FUSED_STEPS_MAX", pt_llm_config.FUSED_STEPS_MAX),
                        ("RAY_TPU_LLM_FUSED_SYNC_TARGET", pt_llm_config.FUSED_SYNC_TARGET),
                        ("RAY_TPU_LLM_ENGINE_IDLE_WAIT_S", pt_llm_config.ENGINE_IDLE_WAIT_S),
+                       ("RAY_TPU_LLM_PREFIX_MIN_HIT_TOKENS", pt_llm_config.PREFIX_MIN_HIT_TOKENS),
                        ("RAY_TPU_CHUNKED_ATTENTION_MIN_LOGITS", pt_attn.CHUNKED_MIN_LOGITS)]:
         assert knobs.get(env).default == const, env
 

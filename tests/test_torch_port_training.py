@@ -10,6 +10,7 @@ loss_fn, three steps of one jitted make_train_step(donate=False), and one
 jitted optax update of a small tree.
 """
 import dataclasses
+from collections import Counter
 
 import jax
 import jax.numpy as jnp
@@ -17,6 +18,8 @@ import numpy as np
 import optax
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils.checkpoint import set_checkpoint_early_stop
 
 from ray_tpu.models import config as jax_config
 from ray_tpu.models import llama as jax_llama
@@ -191,15 +194,76 @@ def test_donate_updates_in_place_and_copy_does_not(jax_params):
     assert torch.equal(new.params["embed"], kept.params["embed"])
 
 
-def test_remat_full_and_none_give_the_same_grads(jax_params):
+@pytest.fixture(scope="module")
+def jax_remat_grads(jax_params):
+    """JAX's gradients of loss_fn under the dots and dots_no_batch policies,
+    from one jitted call."""
+    batch = {k: jnp.asarray(v) for k, v in _batch().items()}
+
+    def run(p):
+        return {policy: jax.grad(lambda q: jax_llama.loss_fn(
+            q, batch, dataclasses.replace(CFG, remat_policy=policy))[0])(p)
+            for policy in ("dots", "dots_no_batch")}
+
+    return jax.tree_util.tree_map(np.asarray, jax.jit(run)(jax_params))
+
+
+@pytest.mark.parametrize("policy", ["full", "dots", "dots_no_batch"])
+def test_remat_full_and_none_give_the_same_grads(jax_params, jax_remat_grads, policy):
+    """Every remat policy gives the gradients of none (through the flash
+    Function), and the dots policies JAX's under the same policy."""
     grads = {}
-    for policy in ("full", "none"):
-        cfg = dataclasses.replace(PT_CFG, remat_policy=policy)
+    for pol in (policy, "none"):
+        cfg = dataclasses.replace(PT_CFG, remat_policy=pol)
         params = _pt_params(jax_params, cfg)
         loss, _ = pt_llama.loss_fn(params, _pt_batch(), cfg)
-        grads[policy] = torch.autograd.grad(loss, pt_llama.tree_leaves(params))
-    for a, b in zip(grads["full"], grads["none"]):
+        grads[pol] = torch.autograd.grad(loss, pt_llama.tree_leaves(params))
+    for a, b in zip(grads[policy], grads["none"]):
         torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-7)
+    if policy in jax_remat_grads:
+        got = bridge.params_to_numpy(pt_llama.tree_unflatten(params, list(grads[policy])))
+        _assert_tree_close(got, jax_remat_grads[policy], GRAD_TOL, f"{policy} grad")
+
+
+class _CountProducts(TorchDispatchMode):
+    """Records the batch size of every mm / addmm / bmm dispatched inside it."""
+
+    def __init__(self):
+        super().__init__()
+        self.batches = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func.overloadpacket in (torch.ops.aten.mm, torch.ops.aten.addmm,
+                                   torch.ops.aten.bmm):
+            self.batches.append(args[0].shape[0] if args[0].dim() == 3 else 0)
+        return func(*args, **(kwargs or {}))
+
+
+def test_remat_policies_recompute_what_jax_recomputes(jax_params):
+    """Counted on the reference attention path: the backward under full
+    recomputes every product of the layers, dots none of them, dots_no_batch
+    only the batched ones (attention's B*H products); the projections run as
+    bmm of batch 1 and are saved. Early stop is off, so full recomputes the
+    whole layer."""
+    cfg0 = dataclasses.replace(PT_CFG, attention_impl="reference")
+    backward, forward = {}, None
+    for policy in ("none", "full", "dots", "dots_no_batch"):
+        cfg = dataclasses.replace(cfg0, remat_policy=policy)
+        params = _pt_params(jax_params, cfg)
+        with set_checkpoint_early_stop(False):
+            with _CountProducts() as fwd:
+                loss, _ = pt_llama.loss_fn(params, _pt_batch(), cfg)
+            with _CountProducts() as bwd:
+                torch.autograd.grad(loss, pt_llama.tree_leaves(params))
+        forward = fwd.batches[:-1]  # the layers' products; the last is the head's
+        backward[policy] = bwd.batches
+    recomputed = {p: sorted((Counter(backward[p]) - Counter(backward["none"])).elements())
+                  for p in ("full", "dots", "dots_no_batch")}
+    assert len(forward) == 9 * CFG.n_layers  # q k v, QK^T PV, o, gate up down
+    assert recomputed["full"] == sorted(forward)
+    assert recomputed["dots"] == []
+    assert recomputed["dots_no_batch"] == sorted(b for b in forward if b > 1)
+    assert len(recomputed["dots_no_batch"]) == 2 * CFG.n_layers
 
 
 SCHEDULES = [(2, 10), (0, 5), (5, 3), (100, 10000)]  # (warmup_steps, total_steps)
