@@ -44,7 +44,26 @@ Phases, each fatal on failure (the script exits non-zero and prints no result):
      prefill, no B1a launch); preemption of 4 concurrent 250-token prompts
      in a 36-block pool (all finish, >= 1 preemption, the pool all free);
      torch.profiler over one detached prefill and one 32-slot paged step;
-  6. the training path: make_train_step(llama8b-geom2, make_optimizer(
+  6. int8 weights and n-gram speculation on the same weights:
+     LLMConfig(quantization="int8") quantizes them at start (weight bytes
+     against bf16); three solo greedy prompts in the slot layout (TTFT and
+     decode tok/s beside phase 3's bf16 medians, B1a n_layers times per
+     prefill); one int8 prefill through B1a and one decode step against the
+     plain path on the same dequantized weights. Then speculation at
+     bench_serve's k = 4: propose_ngram_device on the card against the
+     engine's host proposer on planted histories; in the slot and the paged
+     layout, a verify window's logits at each position against the decode
+     steps that produce the same positions; the n-gram proposer (host,
+     single-window; device, fused m = 4) on three repetitive prompts P + C
+     + P, C the plain engine's own greedy continuation of P (each run must
+     draft; acceptance and tok/s beside the plain engine); bench_spec_modes
+     at batch 1 and 8 of 96 tokens in f32, as there (one f32 copy of the
+     weights): the plain engine, fused-only m = 8, and the oracle (the
+     plain engine's greedy continuation as drafts, through _propose_ngram
+     and spec_multi's propose_fn seam) single-window and fused m = 4;
+     every request finishes with its tokens and every prefill launches B1a
+     n_layers times;
+  7. the training path: make_train_step(llama8b-geom2, make_optimizer(
      warmup_steps=2, total_steps=1000)) in bf16 with f32 parameters, with
      remat dots (bench.py's policy) and then full, on one seeded batch of
      6 x 2049 tokens: for each, one warm-up step, then TRAIN_STEPS timed
@@ -53,10 +72,10 @@ Phases, each fatal on failure (the script exits non-zero and prints no result):
      B1c n_layers times each); finite losses and grad norms, the last loss
      below the first timed one; step time, tokens/s, MFU against the bf16
      peak, peak memory; torch.profiler over one step;
-  7. the training numerics at full width: llama8b-geom2 in f32 at B1 S256,
+  8. the training numerics at full width: llama8b-geom2 in f32 at B1 S256,
      loss_fn's value and every parameter's gradient through the kernels,
      with remat full and dots, against attention_impl="reference";
-  8. a JSON line of the kernels, the card's name and power limit, and last the
+  9. a JSON line of the kernels, the card's name and power limit, and last the
      line {"ok": true, "device": {...}}.
 With ``--json PATH`` a copy of every number is written to PATH as JSON.
 """
@@ -101,6 +120,11 @@ PAGED = dict(kv_layout="paged", max_num_seqs=32, max_model_len=1024, kv_block_si
 # their attention path (flash for a whole prompt, the plain path for a chunk or
 # a suffix) and in their bf16 roundings, through 32 layers
 PAGED_TOL = 2e-2
+SPEC_K = 4  # bench_serve.py's drafts per window (bench_spec_modes)
+SPEC_GEN = 96  # tokens per oracle request (bench_spec_modes' gen_tokens)
+SPEC_BATCHES = (1, 8)  # concurrent oracle requests (bench_serve.py:1600)
+NGRAM_GEN = 64  # tokens per n-gram request
+NGRAM_SEEDS = (1, 2, 3)  # one n-gram request per seed, served together
 
 
 def nvidia_smi() -> str:
@@ -390,6 +414,15 @@ def training_timings(torch, fa):
                       sdpa_bwd_ms=library["bwd"], kernels_bwd_ms=bwd_ms)
 
 
+PROMPT_TEXT = ("In the beginning the framework ran on one chip, and its users paid for "
+               "every second the chip spent waiting. ")
+
+
+def prompt_text(n_chars):
+    """PROMPT_TEXT repeated to n_chars characters (a repetitive prompt)."""
+    return (PROMPT_TEXT * (n_chars // len(PROMPT_TEXT) + 1))[:n_chars]
+
+
 def main_path(torch, fa, card):
     """llama3-8b served through LLMServer on the card."""
     from ray_tpu_torch.llm import LLMConfig, LLMServer
@@ -405,12 +438,7 @@ def main_path(torch, fa, card):
           f"params in {cfg.dtype}, slots {cfg.max_num_seqs}, max_model_len "
           f"{cfg.max_model_len}, buckets {cfg.buckets()}", flush=True)
 
-    text = ("In the beginning the framework ran on one chip, and its users paid for "
-            "every second the chip spent waiting. ")
-
-    def prompt(n_chars):
-        return (text * (n_chars // len(text) + 1))[:n_chars]
-
+    prompt = prompt_text
     # (kind, stream, temperature, prompt chars) -> prompt tokens + template
     plan = [
         ("chat", False, 0.0, 10),      # bucket 32
@@ -420,59 +448,45 @@ def main_path(torch, fa, card):
         ("completions", False, 0.0, 40),   # bucket 64
         ("chat", True, 0.9, 200),      # bucket 256
     ]
-    results = [None] * len(plan)
-    errors = []
 
-    def run(i, kind, stream, temp, n_chars):
-        try:
-            body = {"max_tokens": 32, "temperature": temp, "top_p": 0.9, "top_k": 50}
-            if kind == "chat":
-                body["messages"] = [{"role": "user", "content": prompt(n_chars)}]
-            else:
-                body["prompt"] = prompt(n_chars)
-            if stream:
-                body["stream"] = True
-            t = time.perf_counter()
-            resp = getattr(server, kind)(body)
-            if stream:
-                frames = list(resp)
-                final = json.loads(frames[-2][len("data: "):])
-                # SSE frames carry text, not token counts: "length" says the
-                # stream ran to max_tokens, so it finished with tokens
-                if frames[-1] != "data: [DONE]\n\n" or \
-                        final["choices"][0]["finish_reason"] != "length":
-                    raise AssertionError(f"bad SSE stream end: {frames[-2:]}")
-                results[i] = dict(kind=kind, stream=True, temperature=temp,
-                                  frames=len(frames), wall_s=time.perf_counter() - t,
-                                  finish_reason=final["choices"][0]["finish_reason"])
-            else:
-                usage = resp["usage"]
-                if usage["completion_tokens"] < 1 or resp["choices"][0]["finish_reason"] \
-                        not in ("length", "stop"):
-                    raise AssertionError(f"request {i} returned no tokens: {resp}")
-                results[i] = dict(kind=kind, stream=False, temperature=temp,
-                                  prompt_tokens=usage["prompt_tokens"],
-                                  completion_tokens=usage["completion_tokens"],
-                                  wall_s=time.perf_counter() - t,
-                                  finish_reason=resp["choices"][0]["finish_reason"])
-        except BaseException as e:  # recorded and re-raised by the caller
-            errors.append((i, repr(e)))
+    def run(i):
+        kind, stream, temp, n_chars = plan[i]
+        body = {"max_tokens": 32, "temperature": temp, "top_p": 0.9, "top_k": 50}
+        if kind == "chat":
+            body["messages"] = [{"role": "user", "content": prompt(n_chars)}]
+        else:
+            body["prompt"] = prompt(n_chars)
+        if stream:
+            body["stream"] = True
+        t = time.perf_counter()
+        resp = getattr(server, kind)(body)
+        if stream:
+            frames = list(resp)
+            final = json.loads(frames[-2][len("data: "):])
+            # SSE frames carry text, not token counts: "length" says the
+            # stream ran to max_tokens, so it finished with tokens
+            if frames[-1] != "data: [DONE]\n\n" or \
+                    final["choices"][0]["finish_reason"] != "length":
+                raise AssertionError(f"bad SSE stream end: {frames[-2:]}")
+            return dict(kind=kind, stream=True, temperature=temp,
+                        frames=len(frames), wall_s=time.perf_counter() - t,
+                        finish_reason=final["choices"][0]["finish_reason"])
+        usage = resp["usage"]
+        if usage["completion_tokens"] < 1 or resp["choices"][0]["finish_reason"] \
+                not in ("length", "stop"):
+            raise AssertionError(f"request {i} returned no tokens: {resp}")
+        return dict(kind=kind, stream=False, temperature=temp,
+                    prompt_tokens=usage["prompt_tokens"],
+                    completion_tokens=usage["completion_tokens"],
+                    wall_s=time.perf_counter() - t,
+                    finish_reason=resp["choices"][0]["finish_reason"])
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     prefills0, gen0 = eng.num_prefills, eng.total_generated
     fa.reset_launch_count()
     # ---- the main path: counts zeroed just before, read just after ----
-    t_phase = time.perf_counter()
-    threads = [threading.Thread(target=run, args=(i, *p), daemon=True, name=f"req-{i}")
-               for i, p in enumerate(plan)]
-    for t in threads:
-        t.start()
-    for t in threads:
-        t.join(timeout=600)
-    if any(t.is_alive() for t in threads) or errors or None in results:
-        raise SystemExit(f"concurrent requests failed: errors={errors} results={results}")
-    phase_s = time.perf_counter() - t_phase
+    results, phase_s = run_together(run, len(plan), timeout=600)
     phase_tokens = eng.total_generated - gen0
 
     solo = []
@@ -965,32 +979,16 @@ def paged_path(torch, fa, card, params):
     peng = TorchLLMEngine(LLMConfig(model_source="llama3-8b", **dict(PAGED, num_kv_blocks=36)),
                           params=eng.params)
     prompts = [random_ids(torch, gen, 250) for _ in range(4)]
-    results, errors = [None] * 4, []
-
-    def run(i):
-        try:
-            results[i] = solo_request(peng, prompts[i], 64)
-        except BaseException as e:  # recorded and raised below
-            errors.append((i, repr(e)))
-
     try:
-        t0 = time.perf_counter()
-        threads = [threading.Thread(target=run, args=(i,), daemon=True) for i in range(4)]
-        for t in threads:
-            t.start()
-        for t in threads:
-            t.join(timeout=300)
-        wall_s = time.perf_counter() - t0
-        alive = any(t.is_alive() for t in threads)
+        results, wall_s = run_together(lambda i: solo_request(peng, prompts[i], 64), 4)
     finally:
         peng.shutdown()
     pm = peng.metrics()
     print(f"  preemption: 4 x 250-token prompts x 64 tokens in {pm['kv_blocks_total']} blocks: "
           f"{pm['num_preemptions']} preemptions, {pm['kv_blocks_free']} blocks free after, "
           f"{wall_s:.2f} s [{card}]", flush=True)
-    if alive or errors or None in results or pm["num_preemptions"] < 1 \
-            or pm["kv_blocks_free"] != pm["kv_blocks_total"]:
-        raise SystemExit(f"preemption run failed: errors {errors}, metrics {pm}")
+    if pm["num_preemptions"] < 1 or pm["kv_blocks_free"] != pm["kv_blocks_total"]:
+        raise SystemExit(f"preemption run failed: metrics {pm}")
     out.update(preemption=dict(metrics=pm, wall_s=wall_s, requests=results))
     del eng, ceng, peng
     torch.cuda.empty_cache()
@@ -1016,6 +1014,379 @@ def paged_where_time_goes(torch, eng):
             paged.decode_step_paged(eng.params, state, last, active, cfg))),
     }
     del state
+    return out
+
+
+def tree_bytes(params):
+    """Bytes a parameter dict holds (an int8 QTensor: its q and s)."""
+    from ray_tpu_torch.ops.quant import QTensor
+
+    total = 0
+    for val in params.values():
+        for t in (val.values() if isinstance(val, dict) else [val]):
+            total += t.nbytes if isinstance(t, QTensor) else t.nelement() * t.element_size()
+    return total
+
+
+def run_together(fn, n, timeout=300):
+    """Call fn(i) for i < n, each on a thread of its own, all started at once
+    -> (results, wall seconds from the first start to the last join); exits
+    if a call raised, returned None or outlived the timeout."""
+    results, errors = [None] * n, []
+
+    def run(i):
+        try:
+            results[i] = fn(i)
+        except BaseException as e:  # recorded and raised below
+            errors.append((i, repr(e)))
+
+    threads = [threading.Thread(target=run, args=(i,), daemon=True) for i in range(n)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=timeout)
+    wall = time.perf_counter() - t0
+    if any(t.is_alive() for t in threads) or errors or None in results:
+        raise SystemExit(f"concurrent requests failed: errors {errors} results {results}")
+    return results, wall
+
+
+def serve_together(eng, requests):
+    """Run (prompt ids, SamplingParams) requests concurrently -> (outputs,
+    wall seconds from the first submission to the last token); each must
+    finish with its max_tokens."""
+    outs, wall = run_together(lambda i: eng.generate_sync(*requests[i]), len(requests))
+    for out, (_, p) in zip(outs, requests):
+        if len(out.token_ids) != p.max_tokens or out.finish_reason != "length":
+            raise SystemExit(f"a request ended with {len(out.token_ids)} of {p.max_tokens} "
+                             f"tokens ({out.finish_reason})")
+    return outs, wall
+
+
+def quant_path(torch, fa, card, params, served):
+    """int8 weights (W8A16) on the slot phase's llama3-8b weights: the engine
+    quantizes them at start; the weight bytes against bf16; three solo
+    greedy prompts in the slot layout beside phase 3's bf16 numbers, B1a
+    n_layers times per prefill; one prefill (through B1a) and one decode
+    step against the plain path on the same dequantized weights."""
+    from ray_tpu_torch.llm import LLMConfig, TorchLLMEngine, model_runner
+    from ray_tpu_torch.models import llama
+
+    bf16_bytes = tree_bytes(params)
+    eng = TorchLLMEngine(LLMConfig(model_source="llama3-8b", quantization="int8"),
+                         params=params)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.start()
+    torch.cuda.synchronize()
+    quant_s = time.perf_counter() - t0
+    mcfg, n_layers = eng.model_config, eng.model_config.n_layers
+    int8_bytes = tree_bytes(eng.params)
+    print(f"  quantized at start in {quant_s:.2f} s: weights {int8_bytes / 1e9:.3f} GB int8 "
+          f"against {bf16_bytes / 1e9:.3f} GB bf16 ({int8_bytes / bf16_bytes:.3f})", flush=True)
+
+    fa.reset_launch_count()
+    prefills0 = eng.num_prefills
+    solo = [solo_request(eng, eng.tokenizer.encode(prompt_text(n)), 64)
+            for n in (120, 500, 1000)]
+    torch.cuda.synchronize()
+    launches, prefills = fa.launch_count(), eng.num_prefills - prefills0
+    bf16 = {}
+    for r in served["solo"]:
+        bf16.setdefault(r["prompt_tokens"], []).append(r)
+    for r in solo:
+        ref = bf16.get(r["prompt_tokens"], [])
+        ref_ttft = statistics.median(x["ttft_ms"] for x in ref) if ref else float("nan")
+        ref_tps = statistics.median(x["decode_tok_s"] for x in ref) if ref else float("nan")
+        r.update(bf16_ttft_ms=ref_ttft, bf16_decode_tok_s=ref_tps)
+        print(f"  int8, prompt {r['prompt_tokens']} tokens: TTFT {r['ttft_ms']:.2f} ms (bf16 "
+              f"median {ref_ttft:.2f}), decode {r['decode_tok_s']:.2f} tok/s (bf16 median "
+              f"{ref_tps:.2f}) over {r['tokens']} tokens [{card}]", flush=True)
+    print(f"  flash launches {launches} over {prefills} prefills (n_layers {n_layers})",
+          flush=True)
+    if prefills != 3 or launches != n_layers * prefills:
+        raise SystemExit(f"int8 prefills {prefills}, flash launches {launches}: the int8 "
+                         "prefill did not run through the kernel once per layer")
+
+    # the plain path: attention_impl="reference" over the same int8 weights,
+    # which as_weight dequantizes at each use
+    ref_cfg = dataclasses.replace(mcfg, attention_impl="reference")
+    ids = random_ids(torch, torch.Generator().manual_seed(12), 301)
+    s = 300
+    with torch.no_grad():
+        state = model_runner.init_state(mcfg, 1, 512)
+        state, last = model_runner.prefill(eng.params, state, padded_ids(torch, ids[:s], 512),
+                                           s, 0, mcfg)
+        _, dec = model_runner.decode_step(eng.params, state, torch.tensor([ids[s]], device="cuda"),
+                                          torch.tensor([True], device="cuda"), mcfg)
+        full_ids = torch.tensor([ids], device="cuda")
+        ref, _ = llama.forward(eng.params, full_ids, ref_cfg)
+        bf16_ref, _ = llama.forward(params, full_ids, ref_cfg)
+    torch.cuda.synchronize()
+    err_prefill, err_decode = rel_err(last, ref[0, s - 1]), rel_err(dec[0], ref[0, s])
+    vs_bf16 = rel_err(ref[0, s], bf16_ref[0, s])
+    print(f"  int8 logits vs the plain path on the dequantized weights, max|d| / max|ref|: "
+          f"prefill {err_prefill:.3e}, decode {err_decode:.3e} (tol {PAGED_TOL}); int8 vs bf16 "
+          f"weights (quantization error, not gated) {vs_bf16:.3e}", flush=True)
+    if not (err_prefill <= PAGED_TOL and err_decode <= PAGED_TOL):
+        raise SystemExit("int8 serving disagrees with the plain path on its weights")
+    eng.shutdown()
+    del eng, state, ref, bf16_ref
+    torch.cuda.empty_cache()
+    return dict(quantize_s=quant_s, weight_bytes_int8=int8_bytes, weight_bytes_bf16=bf16_bytes,
+                solo=solo, launches=launches, prefills=prefills, err_prefill=err_prefill,
+                err_decode=err_decode, tol=PAGED_TOL, int8_vs_bf16_rel=vs_bf16)
+
+
+def verify_check(torch, params, mcfg):
+    """The verify window's logits at each of its k+1 positions against the
+    decode steps that produce the same positions (a 200-token prompt in slot
+    0 of 8, the drafts the decode steps' own greedy picks), in the slot and
+    the paged layout (bench_serve's 32-token blocks)."""
+    from ray_tpu_torch.llm import model_runner, paged
+
+    slots, max_len, bs, k = 8, PAGED["max_model_len"], PAGED["kv_block_size"], SPEC_K
+    ids = random_ids(torch, torch.Generator().manual_seed(13), 200)
+    n = len(ids)
+    kv, vv, last = model_runner.prefill_detached(params, padded_ids(torch, ids, 256), n, mcfg)
+    st = model_runner.install_kv(model_runner.init_state(mcfg, slots, max_len), kv, vv, n, 0)
+    pst = paged.init_paged_state(mcfg, slots, max_len, slots * max_len // bs, bs)
+    nb = 256 // bs  # the prefill's padded length; covers the window's n + k + 1
+    paged.install_prefill(pst, kv, vv, list(range(nb, 2 * nb)), n, 0, nb)
+    ref = model_runner.DecodeState(st.k.clone(), st.v.clone(), st.lengths.clone())
+    del kv, vv
+    active = torch.zeros(slots, dtype=torch.bool, device="cuda")
+    active[0] = True
+    window, ref_logits = [int(last.argmax())], []
+    tokens = torch.zeros(slots, dtype=torch.long, device="cuda")
+    for t in range(k + 1):
+        tokens[0] = window[-1]
+        _, lg = model_runner.decode_step(params, ref, tokens, active, mcfg)
+        ref_logits.append(lg[0].clone())
+        if t < k:
+            window.append(int(lg[0].argmax()))
+    win = torch.zeros((slots, k + 1), dtype=torch.long, device="cuda")
+    win[0] = torch.tensor(window, device="cuda")
+    draft_len = torch.zeros(slots, dtype=torch.long, device="cuda")
+    draft_len[0] = k
+    sampling = (torch.zeros(slots, device="cuda"), torch.ones(slots, device="cuda"),
+                torch.zeros(slots, dtype=torch.long, device="cuda"))
+    out = {}
+    for layout, fn, state in (("slot", model_runner.spec_verify_step, st),
+                              ("paged", paged.spec_verify_step_paged, pst)):
+        _, toks, n_acc, logits = fn(params, state, win, draft_len, active, mcfg, *sampling,
+                                    return_logits=True)
+        torch.cuda.synchronize()
+        errs = [rel_err(logits[0, t], ref_logits[t]) for t in range(k + 1)]
+        out[layout] = dict(rel_errs=errs, n_acc=int(n_acc[0]), length=int(state.lengths[0]))
+        print(f"  verify window of {k + 1} ({layout}) vs {k + 1} decode steps: logits max|d| / "
+              f"max|ref| per position {[f'{e:.2e}' for e in errs]} (tol {PAGED_TOL}); the "
+              f"decode steps' own greedy drafts accepted {int(n_acc[0])} of {k} (bf16 GEMM "
+              f"shapes differ, so not gated)", flush=True)
+        if max(errs) > PAGED_TOL or out[layout]["length"] != n + int(n_acc[0]) + 1:
+            raise SystemExit(f"the {layout} verify window disagrees with the decode steps")
+    del st, pst, ref
+    torch.cuda.empty_cache()
+    return out
+
+
+def spec_engine(params, layout, **kw):
+    """A llama3-8b engine on `params`: the slot layout's defaults, or
+    bench_serve's paged settings with the prefix cache off (so that every
+    prefill is whole and launches B1a n_layers times)."""
+    from ray_tpu_torch.llm import LLMConfig, TorchLLMEngine
+
+    extra = dict(PAGED, enable_prefix_caching=False) if layout == "paged" else {}
+    return TorchLLMEngine(LLMConfig(model_source="llama3-8b", **{**extra, **kw}), params=params)
+
+
+def run_counted(torch, fa, eng, requests, warmup):
+    """Serve `warmup` (one request, untimed) and then `requests` together,
+    shut the engine down; B1a must launch n_layers times per prefill."""
+    try:
+        serve_together(eng, [warmup])
+        fa.reset_launch_count()
+        prefills0, drafted0, accepted0 = (eng.num_prefills, eng.num_spec_drafted,
+                                          eng.num_spec_accepted)
+        outs, wall = serve_together(eng, requests)
+        torch.cuda.synchronize()
+        launches, prefills = fa.launch_count(), eng.num_prefills - prefills0
+    finally:
+        eng.shutdown()
+    n_layers = eng.model_config.n_layers
+    if prefills < len(requests) or launches != n_layers * prefills:
+        raise SystemExit(f"flash launches {launches} != n_layers {n_layers} x prefills "
+                         f"{prefills}")
+    drafted = eng.num_spec_drafted - drafted0
+    accepted = eng.num_spec_accepted - accepted0
+    tokens = sum(len(o.token_ids) for o in outs)
+    return dict(tok_s=tokens / wall, wall_s=wall, tokens=tokens, drafted=drafted,
+                accepted=accepted, accept_rate=accepted / drafted if drafted else None,
+                launches=launches, prefills=prefills, ids=[o.token_ids for o in outs])
+
+
+def proposer_check(torch):
+    """propose_ngram_device on the card against the engine's host proposer
+    (_propose_ngram) on planted histories of llama3-8b ids in a 1024-wide
+    row at k = 4: 64 random ones over a 6-id alphabet (matches everywhere,
+    lengths 1..width-k), distinct ids (no match), lengths 1 and 2,
+    overlapping repeats; and against the same function on the CPU (held to
+    JAX by tests/test_torch_port_spec.py) on those and on full rows, whose
+    drafts start past width - k (the start clamp)."""
+    import types
+
+    from ray_tpu_torch.llm import TorchLLMEngine, model_runner
+
+    width, k, nmax = 1024, SPEC_K, 3
+    gen = torch.Generator().manual_seed(16)
+    alphabet = torch.randint(3, 128000, (6,), generator=gen)
+    distinct = torch.randperm(128000, generator=gen)[:width].tolist()
+    rows = [alphabet[torch.randint(0, 6, (int(n),), generator=gen)].tolist()
+            for n in torch.randint(1, width - k + 1, (64,), generator=gen)]
+    rows += [distinct[:500], distinct[:1], distinct[:1] * 2, distinct[:2] * 40,
+             distinct[:1] * 300]
+    n_host = len(rows)  # histories inside the engine's regime (hlen <= width - k)
+    rows += [distinct[:width - 2] + distinct[width - 4:width - 2],  # drafts start at width - 2
+             distinct[:3] * (width // 3) + distinct[:width % 3]]
+    hist = torch.zeros((len(rows), width), dtype=torch.long)
+    for i, r in enumerate(rows):
+        hist[i, :len(r)] = torch.tensor(r)
+    hlen = torch.tensor([len(r) for r in rows])
+    last = hist[torch.arange(len(rows)), hlen - 1]
+    window, draft_len = model_runner.propose_ngram_device(hist.cuda(), hlen.cuda(), last.cuda(),
+                                                          k, nmax)
+    torch.cuda.synchronize()
+    window, draft_len = window.cpu(), draft_len.cpu()
+    cpu_window, cpu_len = model_runner.propose_ngram_device(hist, hlen, last, k, nmax)
+    fake = types.SimpleNamespace(config=types.SimpleNamespace(ngram_prompt_lookup_max=nmax))
+    host = [TorchLLMEngine._propose_ngram(fake, types.SimpleNamespace(token_history=r), k)
+            for r in rows[:n_host]]
+    card = [window[i, 1:1 + int(draft_len[i])].tolist() for i in range(n_host)]
+    bad_host = [i for i in range(n_host) if card[i] != host[i] or int(window[i, 0]) != rows[i][-1]]
+    same_cpu = torch.equal(window, cpu_window) and torch.equal(draft_len, cpu_len)
+    drafted = sum(len(h) for h in host)
+    print(f"  propose_ngram_device on the card, {len(rows)} histories of width {width}: "
+          f"{n_host - len(bad_host)} of {n_host} equal the host proposer ({drafted} drafts, "
+          f"{sum(1 for h in host if not h)} rows without one); all {len(rows)} equal the CPU "
+          f"run: {same_cpu}", flush=True)
+    if bad_host or not same_cpu or not drafted:
+        raise SystemExit(f"propose_ngram_device disagrees: rows {bad_host}, CPU equal {same_cpu}")
+    return dict(rows=len(rows), host_rows=n_host, drafted=drafted)
+
+
+def spec_path(torch, fa, card, params):
+    """n-gram speculation at bench_serve's k = 4 on the slot phase's bf16
+    weights, in the slot layout and the paged one: the verify window against
+    decode steps; the device proposer against the host one; the n-gram
+    proposer (host, single-window; device, fused m = 4) on prompts that
+    make it draft; and bench_spec_modes (bench_serve.py:277-367, at batch 1
+    and 8 of 96 tokens, in f32 as there): the plain engine, fused-only
+    m = 8, and the oracle (the plain engine's own greedy continuation as
+    drafts, through _propose_ngram and spec_multi's propose_fn seam)
+    single-window and fused m = 4, in one call. Every request must finish with its tokens and every
+    prefill launch B1a n_layers times."""
+    import functools
+
+    import numpy as np
+
+    from ray_tpu_torch.llm import LLMConfig, SamplingParams, model_runner, paged
+
+    mcfg = LLMConfig(model_source="llama3-8b").resolve_model_config()
+    out = {"k": SPEC_K, "verify": verify_check(torch, params, mcfg),
+           "proposer": proposer_check(torch)}
+    greedy = dict(temperature=0.0, stop_token_ids=[-1])
+    warm = ([1, 2, 3], SamplingParams(max_tokens=8, **greedy))
+    seeded = [random_ids(torch, torch.Generator().manual_seed(s), 40) for s in NGRAM_SEEDS]
+    prompt = [int(x) for x in np.random.default_rng(1).integers(1, 200, 40)]  # bench_spec_modes'
+    # bench_spec_modes runs f32 engines: in bf16 a verify window's GEMMs
+    # round otherwise than a decode step's, a near-tie flips (its prompt
+    # makes many), and the fixed oracle stops matching from the fork on.
+    # Weights and activations both f32 (LLMConfig.dtype sets only the
+    # weights'). One f32 copy (32 GB) serves every oracle engine: an engine
+    # keeps a weight already in its dtype.
+    params32 = {name: ({k: v.float() for k, v in val.items()} if name == "layers"
+                       else val.float()) for name, val in params.items()}
+    for layout in ("slot", "paged"):
+        res = {}
+
+        def ngram_requests(prompts):
+            return [(p, SamplingParams(max_tokens=NGRAM_GEN, **greedy)) for p in prompts]
+
+        # ---- n-gram: P + C + P, C the plain engine's greedy continuation of
+        # P. The first token after it repeats C's first, so the proposer
+        # drafts the rest of C; a random model seldom continues it ----
+        res["seed_plain"] = run_counted(
+            torch, fa, spec_engine(params, layout, max_num_seqs=len(seeded)),
+            ngram_requests(seeded), warm)
+        looped = [p + c + p for p, c in zip(seeded, res["seed_plain"]["ids"])]
+        for mode, kw in (("ngram_plain", {}),
+                         ("ngram_single", dict(num_speculative_tokens=SPEC_K,
+                                               num_decode_steps=1)),
+                         ("ngram_fused_m4", dict(num_speculative_tokens=SPEC_K,
+                                                 num_decode_steps=4))):
+            res[mode] = run_counted(torch, fa, spec_engine(params, layout,
+                                                           max_num_seqs=len(looped), **kw),
+                                    ngram_requests(looped), warm)
+        # ---- bench_spec_modes' oracle at each batch ----
+        owner, name = (model_runner, "spec_multi") if layout == "slot" else \
+            (paged, "spec_multi_paged")
+        real = getattr(owner, name)
+        for batch in SPEC_BATCHES:
+            reqs = [(prompt, SamplingParams(max_tokens=SPEC_GEN, **greedy))] * batch
+            f32 = dict(dtype="float32", engine_kwargs=dict(dtype="float32"),
+                       max_num_seqs=batch)
+            res[f"b{batch}_plain"] = run_counted(
+                torch, fa, spec_engine(params32, layout, **f32), reqs, warm)
+            res[f"b{batch}_fused8"] = run_counted(
+                torch, fa, spec_engine(params32, layout, num_decode_steps=8, **f32), reqs, warm)
+            cont = res[f"b{batch}_plain"]["ids"][0]
+
+            def host_oracle(req, cap, cont=cont):
+                done = len(req.token_history) - len(prompt)
+                return cont[done:done + cap]
+
+            table = torch.zeros((batch, 1024), dtype=torch.long, device="cuda")
+            table[:, :len(prompt) + len(cont)] = torch.tensor(prompt + cont, device="cuda")
+
+            def device_oracle(h, hl, last, k, nmax, table=table):
+                starts = hl.clamp(0, table.shape[1] - k)
+                idx = starts[:, None] + torch.arange(k, device=h.device)[None, :]
+                drafts = torch.gather(table[:h.shape[0]], 1, idx)
+                return (torch.cat([last[:, None], drafts], dim=1),
+                        torch.full((h.shape[0],), k, dtype=torch.long, device=h.device))
+
+            setattr(owner, name, functools.partial(real, propose_fn=device_oracle))
+            try:
+                for mode, m in (("oracle_single", 1), ("oracle_fused_m4", 4)):
+                    eng = spec_engine(params32, layout, num_speculative_tokens=SPEC_K,
+                                      num_decode_steps=m, **f32)
+                    eng._propose_ngram = host_oracle
+                    res[f"b{batch}_{mode}"] = run_counted(torch, fa, eng, reqs, warm)
+            finally:
+                setattr(owner, name, real)
+        for mode, r in res.items():  # seed_, ngram_, b1_, b8_: each group beside its plain run
+            base = res[f"{mode.split('_')[0]}_plain"]
+            r["same_ids_as_plain"] = r["ids"] == base["ids"]
+            r["vs_plain"] = r["tok_s"] / base["tok_s"]
+            if "oracle" in mode:
+                r["vs_fused8"] = r["tok_s"] / res[f"{mode.split('_')[0]}_fused8"]["tok_s"]
+        for mode, r in res.items():
+            rate = "-" if r["accept_rate"] is None else f"{r['accept_rate']:.3f}"
+            vs = f", {r['vs_fused8']:.2f}x fused8" if "vs_fused8" in r else ""
+            print(f"  spec {layout} {mode}: {r['tokens']} tokens in {r['wall_s']:.3f} s = "
+                  f"{r['tok_s']:.2f} tok/s ({r['vs_plain']:.2f}x plain{vs}), accepted "
+                  f"{r['accepted']} of {r['drafted']} drafts ({rate}), ids as plain "
+                  f"{r['same_ids_as_plain']}, flash launches {r['launches']} over "
+                  f"{r['prefills']} prefills [{card}]", flush=True)
+        for mode in ("ngram_single", "ngram_fused_m4"):
+            if not res[mode]["drafted"]:
+                raise SystemExit(f"the n-gram proposer drafted nothing ({layout}, {mode})")
+        for r in res.values():
+            del r["ids"]
+        out[layout] = res
+    del params32
+    torch.cuda.empty_cache()
     return out
 
 
@@ -1132,10 +1503,15 @@ def main() -> int:
 
     print("[5] paged serving: llama3-8b with bench_serve's paged settings", flush=True)
     paged_served = paged_path(torch, fa, card, params)
+
+    print("[6] int8 weights and n-gram speculation: llama3-8b on the same weights",
+          flush=True)
+    quant_served = quant_path(torch, fa, card, params, served)
+    spec_served = spec_path(torch, fa, card, params)
     del params
     torch.cuda.empty_cache()
 
-    print("[6] training path: llama8b-geom2 trained on the card, remat dots and full",
+    print("[7] training path: llama8b-geom2 trained on the card, remat dots and full",
           flush=True)
     trained_runs = {policy: train_path(torch, fa, card, policy) for policy in ("dots", "full")}
     trained = trained_runs["dots"]  # bench.py's policy
@@ -1144,7 +1520,7 @@ def main() -> int:
           f"{trained_runs['full']['mfu_bf16_peak']:.4f}, peak {trained['peak_gib']:.2f} vs "
           f"{trained_runs['full']['peak_gib']:.2f} GiB [{card}]", flush=True)
 
-    print("[7] training gradients against the plain path", flush=True)
+    print("[8] training gradients against the plain path", flush=True)
     train_check = train_numerics(torch, fa)
 
     sources = {"flash_fwd": ("ray_tpu_torch/ops/csrc/flash_fwd.cu",
@@ -1174,6 +1550,9 @@ def main() -> int:
         })
     kernels[0]["launches_serving"] = served["launches"]
     kernels[0]["launches_paged"] = paged_served["launches"]
+    kernels[0]["launches_int8"] = quant_served["launches"]
+    kernels[0]["launches_spec"] = sum(r["launches"] for layout in ("slot", "paged")
+                                      for r in spec_served[layout].values())
     kernels[0]["design"] = (
         "bf16: a producer warpgroup keeps a 3-stage TMA ring of 128-row K/V tiles "
         "(mbarrier full/empty); two consumer warpgroups of 64 q rows run S = QK^T and "
@@ -1198,6 +1577,7 @@ def main() -> int:
                   build_s=build_s, sass=sass, checks=checks, backward_checks=bwd_checks,
                   timings=timings, training_timings=train_timings, sdpa_backward=sdpa_bwd,
                   served=served, numerics=numerics, paged=paged_served,
+                  int8=quant_served, spec=spec_served,
                   trained=trained_runs, train_numerics=train_check, kernels=kernels,
                   total_s=total_s)
     if json_path:

@@ -2,10 +2,11 @@
 
 The JAX package's fields that the port serves, and those that select what
 it does not serve yet: the slot and paged KV layouts (with the prefix cache)
-on one device, with whole-prompt or chunked prefill. The rest raises
-NotImplementedError naming its ROADMAP item at construction. The JAX engine's
-checks of the paged and chunked settings (ray_tpu/llm/engine.py:283-301) run
-here, at construction, with the same ValueErrors.
+on one device, with whole-prompt or chunked prefill, n-gram speculative
+decoding and int8 weights (W8A16). The rest raises NotImplementedError naming
+its ROADMAP item at construction. The JAX engine's checks of the paged,
+chunked, speculative and quantization settings (ray_tpu/llm/engine.py:283-307)
+run here, at construction, before any weight is built, with the same errors.
 The defaults the JAX package reads from its knob registry are constants here.
 """
 from __future__ import annotations
@@ -46,6 +47,26 @@ class SamplingParams:
 
 
 @dataclasses.dataclass
+class SpecConfig:
+    """First-class speculative-decoding mode (reference vLLM SpeculativeConfig).
+
+    Composes with fused multi-step decode: each fused window proposes and
+    verifies ``num_tokens`` drafts on the device, so per host sync the engine
+    emits between K and K*(num_tokens+1) tokens. ``method`` is the proposer;
+    only "ngram" (prompt lookup) is implemented."""
+
+    num_tokens: int = 4
+    method: str = "ngram"
+    ngram_max: int = 3  # longest trailing n-gram the proposer matches
+
+    def __post_init__(self):
+        if self.num_tokens < 1:
+            raise ValueError("SpecConfig.num_tokens must be >= 1")
+        if self.ngram_max < 1:
+            raise ValueError("SpecConfig.ngram_max must be >= 1")
+
+
+@dataclasses.dataclass
 class LLMConfig:
     """Model + engine settings for ``TorchLLMEngine`` / ``LLMServer``.
 
@@ -72,9 +93,15 @@ class LLMConfig:
     prefill_chunk: Optional[int] = None
     # fused decode burst width; None = FUSED_STEPS (0 = auto-tune)
     num_decode_steps: Optional[int] = None
-    num_speculative_tokens: int = 0  # ROADMAP A2d
-    speculative: Optional[Any] = None  # ROADMAP A2d
-    quantization: Optional[str] = None  # ROADMAP A3
+    # speculative decoding (vLLM ngram / prompt lookup): up to this many
+    # drafts a step, verified in one forward; 0 = off
+    num_speculative_tokens: int = 0
+    speculative_method: str = "ngram"
+    ngram_prompt_lookup_max: int = 3
+    # a SpecConfig (or its dict form) overrides the three fields above
+    speculative: Optional[Union[SpecConfig, Dict[str, Any]]] = None
+    # None, or "int8": per-output-channel int8 weights, bf16 activations (W8A16)
+    quantization: Optional[str] = None
     tensor_parallel_size: int = 1  # > 1: ROADMAP A6
     data_parallel_size: int = 1
     expert_parallel_size: int = 1
@@ -85,10 +112,19 @@ class LLMConfig:
     def __post_init__(self):
         if self.kv_layout not in ("slot", "paged"):
             raise ValueError(f"unknown kv_layout {self.kv_layout!r}")
-        if self.num_speculative_tokens or self.speculative is not None:
-            raise NotImplementedError("speculative decoding: ROADMAP A2d")
-        if self.quantization:
-            raise NotImplementedError("weight quantization: ROADMAP A3")
+        if self.speculative is not None:
+            sp = self.speculative
+            if isinstance(sp, dict):
+                sp = self.speculative = SpecConfig(**sp)
+            self.num_speculative_tokens = sp.num_tokens
+            self.speculative_method = sp.method
+            self.ngram_prompt_lookup_max = sp.ngram_max
+        if self.num_speculative_tokens and self.speculative_method != "ngram":
+            raise NotImplementedError(
+                f"speculative_method {self.speculative_method!r}: only "
+                "'ngram' (prompt lookup) is implemented")
+        if self.quantization and self.quantization != "int8":
+            raise ValueError(f"unknown quantization {self.quantization!r} (supported: int8)")
         for name in ("tensor_parallel_size", "data_parallel_size",
                      "expert_parallel_size", "pipeline_parallel_size"):
             if getattr(self, name) != 1:

@@ -15,8 +15,16 @@ preempts the youngest request, which is prefilled again later from its token
 history; full prompt blocks are shared through the prefix cache when the hit
 pays for itself (the pay-or-skip gate).
 
-P/D disaggregation and speculation (ROADMAP A2d, A2e), pipeline parallelism
-(A6) and telemetry (A11) are later slices.
+With num_speculative_tokens = k the decode step is n-gram speculation: the
+host proposes up to k drafts per greedy slot from its token history, one
+verify forward scores the window and the accepted prefix plus a bonus token
+emit at once; with a fused burst width m > 1 the proposal runs on the device
+too, m windows per host sync. quantization="int8" stores the layer matmuls
+and an untied head as int8 with per-output-channel scales (W8A16),
+quantized once the weights are on the device.
+
+P/D disaggregation (ROADMAP A2e), pipeline parallelism (A6) and telemetry
+(A11) are later slices.
 """
 from __future__ import annotations
 
@@ -36,6 +44,7 @@ import torch
 from ray_tpu_torch.device import resolve_device
 from ray_tpu_torch.models import llama
 from ray_tpu_torch.models.config import torch_dtype
+from ray_tpu_torch.ops.quant import quantize_llama_params
 
 from . import model_runner, paged
 from . import config as llm_config
@@ -134,11 +143,14 @@ class TorchLLMEngine(LLMEngine):
         self.total_generated = 0
         self.num_preemptions = 0
         self.num_prefix_skipped = 0
+        self.num_spec_drafted = 0
+        self.num_spec_accepted = 0
 
     # -- lifecycle ---------------------------------------------------------------
     def start(self) -> None:
-        """Place the weights on the device in config.dtype (thread-safe,
-        idempotent). The KV state and the scheduler loop start on first use."""
+        """Place the weights on the device in config.dtype, then quantize them
+        when config.quantization says so (thread-safe, idempotent). The KV
+        state and the scheduler loop start on first use."""
         with self._start_lock:
             if self._started:
                 return
@@ -155,6 +167,9 @@ class TorchLLMEngine(LLMEngine):
             else:
                 self.params = llama.init(cfg, seed=0, device=self.device, dtype=dtype)
             self._params_in = None
+            if c.quantization:
+                # on the device, one layer at a time (ray_tpu/llm/engine.py:325-331)
+                self.params = quantize_llama_params(self.params)
             self._active = {s: None for s in range(c.max_num_seqs)}
             self._gen = torch.Generator(device=self.device)
             self._gen.manual_seed(0)
@@ -301,11 +316,14 @@ class TorchLLMEngine(LLMEngine):
             num_prompt_tokens=last.num_prompt_tokens, num_generated_tokens=len(ids))
 
     def metrics(self) -> Dict[str, Any]:
-        """The paged-KV counters of the JAX engine's metrics(): preemptions,
-        skipped prefix hits and, with kv_layout="paged", the pool's
-        occupancy and the prefix cache's hits."""
+        """The paged-KV and speculation counters of the JAX engine's
+        metrics(): preemptions, skipped prefix hits, drafted and accepted
+        speculative tokens and, with kv_layout="paged", the pool's occupancy
+        and the prefix cache's hits."""
         out: Dict[str, Any] = {"num_preemptions": self.num_preemptions,
-                               "num_prefix_skipped": self.num_prefix_skipped}
+                               "num_prefix_skipped": self.num_prefix_skipped,
+                               "num_spec_drafted": self.num_spec_drafted,
+                               "num_spec_accepted": self.num_spec_accepted}
         blocks = self._blocks
         if blocks is not None:
             total, free = blocks.total_blocks, blocks.num_free
@@ -620,7 +638,188 @@ class TorchLLMEngine(LLMEngine):
                 self._requests.pop(req.id, None)
                 self._aborted.discard(req.id)
 
+    # -- speculative decoding (ray_tpu/llm/engine.py:1462-1684) ---------------------
+    def _propose_ngram(self, req: _Request, k: int) -> List[int]:
+        """Prompt-lookup drafts (reference vLLM ngram speculator): find the
+        most recent earlier occurrence of the trailing n-gram (longest n
+        first) and propose the tokens that followed it."""
+        ctx = req.token_history  # prompt + every generated token
+        if len(ctx) < 2:
+            return []
+        arr = np.asarray(ctx, dtype=np.int64)
+        total = len(arr)
+        for n in range(min(self.config.ngram_prompt_lookup_max, total - 1), 0, -1):
+            tail = arr[-n:]
+            # shifted-equality scan over the whole history, the tail's own
+            # occurrence excluded
+            m = np.ones(total - n, dtype=bool)
+            for j in range(n):
+                m &= arr[j:total - n + j] == tail[j]
+            hits = np.flatnonzero(m)
+            if hits.size:
+                start = int(hits[-1])
+                cont = ctx[start + n:start + n + k]
+                if cont:
+                    return cont
+        return []
+
+    def _spec_burst_width(self) -> int:
+        """Fused-spec burst cap: each window may emit up to k+1 tokens, so the
+        per-slot room and budget divide by the window length. Windows accept
+        a variable count, so (unlike plain fused decode) the burst width stays
+        capped by the tightest slot."""
+        c = self.config
+        m = self.decode_steps_target()
+        if m == 1:
+            return 1
+        wlen = c.num_speculative_tokens + 1
+        for req in self._active.values():
+            if req is None:
+                continue
+            next_write = len(req.prompt_ids) + req.generated - 1
+            kv_room = (c.max_model_len - 1) - next_write
+            budget = req.params.max_tokens - req.generated
+            m = min(m, max(1, min(kv_room, budget) // wlen))
+        return _pow2_floor(m)
+
+    def _sampling_tensors(self):
+        dev = self.device
+        return (torch.from_numpy(self._temp).to(dev), torch.from_numpy(self._top_p).to(dev),
+                torch.from_numpy(self._top_k).to(dev))
+
+    def _step_decode_spec_fused(self, m: int) -> None:
+        """m speculative windows fused per host sync: the n-gram proposal runs
+        ON THE DEVICE against a per-slot history buffer, so the windows chain
+        without host round trips (model_runner.spec_multi)."""
+        c, dev = self.config, self.device
+        k = c.num_speculative_tokens
+        active_mask = np.array([r is not None for r in self._active.values()], bool)
+        if not active_mask.any():
+            return
+        # history width bucketed to a power of two (at most max_model_len):
+        # bounds the upload when contexts are short, as in the JAX engine
+        max_ctx = max(len(r.token_history) for r in self._active.values() if r is not None)
+        width = min(c.max_model_len, 1 << (max_ctx + m * (k + 1) - 1).bit_length())
+        hist = np.zeros((c.max_num_seqs, width), np.int64)
+        hlen = np.zeros((c.max_num_seqs,), np.int64)
+        for slot, req in self._active.items():
+            if req is not None:
+                hist[slot, :len(req.token_history)] = req.token_history
+                hlen[slot] = len(req.token_history)
+        hist_t, hlen_t, active = (torch.from_numpy(a).to(dev)
+                                  for a in (hist, hlen, active_mask))
+        temp, top_p, top_k = self._sampling_tensors()
+        t0 = time.perf_counter()
+        if self._blocks is not None:
+            self.state, toks_m, acc_m, drafted_m = self._pops.spec_multi(
+                self.params, self.state, hist_t, hlen_t, active, temp, top_p, top_k, m, k,
+                c.ngram_prompt_lookup_max, generator=self._gen)
+        else:
+            self.state, toks_m, acc_m, drafted_m = model_runner.spec_multi(
+                self.params, self.state, hist_t, hlen_t, active, self.model_config, temp,
+                top_p, top_k, m, k, c.ngram_prompt_lookup_max, generator=self._gen)
+        # the one fetch of the burst
+        toks_m, acc_m, drafted_m = (t.cpu().numpy() for t in (toks_m, acc_m, drafted_m))
+        # keeps the auto-K probe live in fused-spec mode (per-window cost)
+        self._note_burst_device_wall(m, time.perf_counter() - t0)
+        burst_reqs = {s: r for s, r in self._active.items() if r is not None}
+        for step in range(m):
+            for slot, req in burst_reqs.items():
+                self._emit_spec_window(slot, req, toks_m[step, slot], int(acc_m[step, slot]),
+                                       int(drafted_m[step, slot]))
+
+    def _emit_spec_window(self, slot: int, req: _Request, toks_row, acc: int,
+                          drafted: int) -> None:
+        """Emit one verify window's accepted prefix + bonus token for a slot
+        (shared by the single-window and fused paths): counts acceptance,
+        discards tokens past a mid-burst finish, finishes at the KV cap."""
+        if self._active.get(slot) is not req:
+            return  # finished (or aborted) earlier in this burst: tail discarded
+        if self._aborted and self._finish_abort(req):
+            return  # cancelled mid-burst: tail discarded, blocks freed now
+        c = self.config
+        self.num_spec_drafted += drafted
+        self.num_spec_accepted += min(acc, drafted)
+        for t in range(acc + 1):
+            if self._active.get(slot) is not req:
+                break
+            tok = int(toks_row[t])
+            self._last_tokens[slot] = tok
+            self._emit(req, tok)
+            r2 = self._active.get(slot)
+            # host mirror of state.lengths (prompt + generated - 1)
+            if r2 is not None and (len(r2.prompt_ids) + r2.generated - 1
+                                   >= c.max_model_len - 1):
+                r2.out_queue.put(RequestOutput(
+                    request_id=r2.id, token_ids=[], finished=True, finish_reason="length",
+                    num_prompt_tokens=len(r2.prompt_ids), num_generated_tokens=r2.generated))
+                self._release(r2)
+
+    def _step_decode_spec(self) -> None:
+        """Speculative decode step: the host proposes drafts by n-gram lookup,
+        ONE verify forward scores the whole window, and the accepted prefix +
+        bonus token all emit this step (greedy slots only; the others ride
+        along with no drafts). With a fused burst target > 1, m windows run
+        on the device per host sync instead."""
+        c, dev = self.config, self.device
+        k = c.num_speculative_tokens
+        if self.decode_steps_target() > 1:
+            m = self._spec_burst_width()
+            if m > 1 and self._blocks is not None:
+                # every window position of the burst must land in an owned block
+                self._grow_or_preempt(headroom=m * (k + 1))
+                m = min(m, self._spec_burst_width())  # preemption changed the set
+            if m > 1:
+                self._step_decode_spec_fused(m)
+                return
+        wlen = k + 1
+        if self._blocks is not None:
+            self._grow_or_preempt(headroom=wlen)  # every window position owned
+        n = c.max_num_seqs
+        window = np.zeros((n, wlen), np.int64)
+        draft_len = np.zeros((n,), np.int64)
+        active_mask = np.zeros((n,), bool)
+        for slot, req in self._active.items():
+            if req is None:
+                continue
+            active_mask[slot] = True
+            window[slot, 0] = self._last_tokens[slot]
+            if self._temp[slot] > 0:
+                continue  # greedy accept is exact only at temperature 0
+            next_write = len(req.prompt_ids) + req.generated - 1
+            room = (c.max_model_len - 1) - next_write - 1
+            budget = req.params.max_tokens - req.generated - 1
+            cap = max(0, min(k, room, budget))
+            drafts = self._propose_ngram(req, cap) if cap else []
+            draft_len[slot] = len(drafts)
+            window[slot, 1:1 + len(drafts)] = drafts
+        if not active_mask.any():
+            return  # preemption may have drained every slot
+        window_t, draft_t, active = (torch.from_numpy(a).to(dev)
+                                     for a in (window, draft_len, active_mask))
+        temp, top_p, top_k = self._sampling_tensors()
+        t0 = time.perf_counter()
+        if self._blocks is not None:
+            self.state, out_toks, n_acc = self._pops.spec_verify(
+                self.params, self.state, window_t, draft_t, active, temp, top_p, top_k,
+                generator=self._gen)
+        else:
+            self.state, out_toks, n_acc = model_runner.spec_verify_step(
+                self.params, self.state, window_t, draft_t, active, self.model_config, temp,
+                top_p, top_k, generator=self._gen)
+        out_toks, n_acc = out_toks.cpu().numpy(), n_acc.cpu().numpy()  # the one fetch
+        # close enough to a decode step to feed the auto-K probe: once it
+        # settles, an auto-mode engine graduates to fused bursts
+        self._note_burst_device_wall(1, time.perf_counter() - t0)
+        burst_reqs = {s: r for s, r in self._active.items() if r is not None}
+        for slot, req in burst_reqs.items():
+            self._emit_spec_window(slot, req, out_toks[slot], int(n_acc[slot]),
+                                   int(draft_len[slot]))
+
     def _step_decode(self) -> None:
+        if self.config.num_speculative_tokens:
+            self._step_decode_spec()
+            return
         cfg, dev = self.model_config, self.device
         k_steps, steps = self._burst_plan()
         if self._blocks is not None:
@@ -632,9 +831,7 @@ class TorchLLMEngine(LLMEngine):
         t0 = time.perf_counter()
         last = torch.from_numpy(self._last_tokens).to(dev)
         active = torch.from_numpy(active_mask).to(dev)
-        temp = torch.from_numpy(self._temp).to(dev)
-        top_p = torch.from_numpy(self._top_p).to(dev)
-        top_k = torch.from_numpy(self._top_k).to(dev)
+        temp, top_p, top_k = self._sampling_tensors()
         if k_steps > 1:
             # fused burst: K decode+sample steps, ONE host sync
             steps_left = torch.from_numpy(steps).to(dev)

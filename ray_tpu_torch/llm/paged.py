@@ -17,8 +17,9 @@ it again later (vLLM's recompute preemption).
 Unlike the JAX functions (pure, with donated buffers), these update the
 PagedState's tensors IN PLACE and return the same object. The block gather
 and the attention of a paged decode step are plain PyTorch, as in the JAX
-package, which has no Pallas kernel for them. The data-parallel, pipelined and
-speculative variants are later slices (ROADMAP A6, A2d).
+package, which has no Pallas kernel for them. Speculative verify shares the
+slot layout's window layer body through the same adapter. The data-parallel
+and pipelined variants are later slices (ROADMAP A6).
 """
 from __future__ import annotations
 
@@ -32,7 +33,8 @@ from ray_tpu_torch.device import resolve_device
 from ray_tpu_torch.models import llama
 from ray_tpu_torch.models.config import ModelConfig
 
-from .model_runner import _burst, _decode_layers
+from .model_runner import (_burst, _decode_layers, _window_positions, propose_ngram_device,
+                           spec_driver, spec_multi_impl)
 
 
 class PagedState(NamedTuple):
@@ -302,27 +304,34 @@ def install_with_prefix(state: PagedState, k_suf: torch.Tensor, v_suf: torch.Ten
 
 # ------------------------------------------------------------------------- decode
 
-def _write_positions(state: PagedState, active: torch.Tensor):
-    """(pool block, offset) [slots] where this step's K/V of each slot goes.
+def _write_positions(state: PagedState, active: torch.Tensor, wlen: int = 1):
+    """(pool block, offset) [slots, wlen] where the K/V of positions
+    lengths[s] + w of each slot go (a decode step is wlen = 1, a verify
+    window k + 1).
 
-    Active slots own distinct blocks, so their writes never collide. An
-    INACTIVE slot's table may point at blocks that were released and are
-    owned by another request now, so its write goes to the scratch block
-    (the pool's last), at a table index clamped to the table's width."""
+    Active slots own distinct blocks, so their writes never collide; the
+    engine grows their tables by the window first. An INACTIVE slot's table
+    may point at blocks that were released and are owned by another request
+    now, so its writes go to the scratch block (the pool's last), as do
+    positions past the table's width; the table index is clamped to the
+    width for the lookup."""
     s, nb_slot = state.block_tables.shape
     bs = state.k.shape[2]
-    lengths = state.lengths
-    rows = torch.arange(s, device=lengths.device)
-    safe_idx = torch.clamp(lengths // bs, max=nb_slot - 1)
-    scratch = torch.full_like(lengths, state.k.shape[1] - 1)
-    return torch.where(active, state.block_tables[rows, safe_idx], scratch), lengths % bs
+    pos = _window_positions(state.lengths, wlen)
+    rows = torch.arange(s, device=pos.device)[:, None]
+    blk = pos // bs
+    safe_idx = torch.clamp(blk, max=nb_slot - 1)
+    scratch = torch.full_like(pos, state.k.shape[1] - 1)
+    owned = active[:, None] & (blk < nb_slot)
+    return torch.where(owned, state.block_tables[rows, safe_idx], scratch), pos % bs
 
 
 def _paged_rw(pk, pv, block_tables, write_block, write_off):
     """The paged layout's cache adapter for one layer's pool pk/pv
-    [NB+1, bs, KV, HD]: this step's K/V scattered to (write_block,
-    write_off), then each slot's blocks gathered into [S, max_len, KV, HD].
-    The scatter does not accumulate: duplicate scratch indices are harmless."""
+    [NB+1, bs, KV, HD]: this window's K/V [S, W, KV, HD] scattered to
+    (write_block, write_off) [S, W], then each slot's blocks gathered into
+    [S, max_len, KV, HD]. The scatter does not accumulate: duplicate scratch
+    indices are harmless, since no table holds the scratch block."""
     s, nb_slot = block_tables.shape
     bs, kvh, hd = pk.shape[1], pk.shape[2], pk.shape[3]
 
@@ -346,7 +355,7 @@ def decode_step_paged(
 ) -> Tuple[PagedState, torch.Tensor]:
     """One decode step for every slot against the paged pool -> (state,
     logits [slots, vocab] f32); pool and lengths updated in place."""
-    write_block, write_off = _write_positions(state, active)
+    write_block, write_off = _write_positions(state, active, 1)
     logits = _decode_layers(params, tokens, active, cfg, state.lengths, lambda i: _paged_rw(
         state.k[i], state.v[i], state.block_tables, write_block, write_off))
     return state, logits
@@ -374,6 +383,63 @@ def decode_multi_paged(
     return _burst(lambda st, toks, act: decode_step_paged(params, st, toks, act, cfg),
                   state, tokens, active, n_steps, temperature, top_p, top_k, steps_left,
                   generator)
+
+
+@torch.no_grad()
+def spec_verify_step_paged(
+    params,
+    state: PagedState,
+    window: torch.Tensor,  # [S,W] int — [last_token, draft_1..draft_k]
+    draft_len: torch.Tensor,  # [S] int
+    active: torch.Tensor,  # [S] bool
+    cfg: ModelConfig,
+    temperature: torch.Tensor,
+    top_p: torch.Tensor,
+    top_k: torch.Tensor,
+    generator: Optional[torch.Generator] = None,
+    return_logits: bool = False,
+):
+    """Speculative verify against the paged pool (see
+    model_runner.spec_verify_step for the contract). The engine grows every
+    active slot's table by the window first, so each window position below
+    max_len maps to a block the slot owns."""
+    write_block, write_off = _write_positions(state, active, window.shape[1])
+    toks, n_acc, logits = spec_driver(
+        params, window, draft_len, active, cfg, state.lengths,
+        lambda i: _paged_rw(state.k[i], state.v[i], state.block_tables, write_block,
+                            write_off),
+        temperature, top_p, top_k, generator)
+    return (state, toks, n_acc, logits) if return_logits else (state, toks, n_acc)
+
+
+@torch.no_grad()
+def spec_multi_paged(
+    params,
+    state: PagedState,
+    hist: torch.Tensor,  # [S, width] int — prompt + emitted tokens per slot
+    hlen: torch.Tensor,  # [S] int
+    active: torch.Tensor,  # [S] bool — fixed for the whole burst
+    cfg: ModelConfig,
+    temperature: torch.Tensor,
+    top_p: torch.Tensor,
+    top_k: torch.Tensor,
+    m: int,
+    k: int,
+    nmax: int,
+    propose_fn=None,
+    generator: Optional[torch.Generator] = None,
+):
+    """m fused speculative windows against the paged pool (see
+    model_runner.spec_multi). Callers grow every active slot's table by
+    m*(k+1) tokens first: the tables are frozen across the burst, and window
+    positions past a slot's table land in the scratch block (never read
+    back, since lengths advance only over accepted tokens, which do have
+    table entries)."""
+    return (state, *spec_multi_impl(
+        hist, hlen, active, temperature, m, k, nmax, propose_fn or propose_ngram_device,
+        lambda window, draft_len: spec_verify_step_paged(
+            params, state, window, draft_len, active, cfg, temperature, top_p, top_k,
+            generator)[1:]))
 
 
 class PagedOps:
@@ -406,6 +472,16 @@ class PagedOps:
                      top_k, steps_left, generator=None):
         return decode_multi_paged(params, state, tokens, active, self.cfg, n_steps,
                                   temperature, top_p, top_k, steps_left, generator)
+
+    def spec_verify(self, params, state, window, draft_len, active, temperature, top_p,
+                    top_k, generator=None):
+        return spec_verify_step_paged(params, state, window, draft_len, active, self.cfg,
+                                      temperature, top_p, top_k, generator)
+
+    def spec_multi(self, params, state, hist, hlen, active, temperature, top_p, top_k, m,
+                   k, nmax, generator=None):
+        return spec_multi_paged(params, state, hist, hlen, active, self.cfg, temperature,
+                                top_p, top_k, m, k, nmax, generator=generator)
 
 
 # ------------------------------------------------------------------ chunked prefill

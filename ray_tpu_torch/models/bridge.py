@@ -5,7 +5,9 @@ Both packages keep the same tree and the same einsum layout, so the bridge
 moves arrays as they are: no transposes anywhere, and every leaf's shape is
 checked against ``llama.param_shapes(cfg)``. The JAX side is handed over as
 numpy (``jax.tree_util.tree_map(np.asarray, params)``); this module never
-imports JAX or optax.
+imports JAX or optax. An int8 leaf (the JAX package's ``QTensor``, from
+``quantize_llama_params``) crosses as its ``q`` and ``s`` both ways and
+becomes the port's ``ops.quant.QTensor``: q stays int8, s f32.
 """
 from __future__ import annotations
 
@@ -15,13 +17,28 @@ import numpy as np
 import torch
 
 from ray_tpu_torch.device import resolve_device
+from ray_tpu_torch.ops.quant import QTensor
 from ray_tpu_torch.train.optim import AdamWState
 
 from . import llama
 from .config import ModelConfig
 
 
-def _leaf(arr, shape, where: str, device, dtype) -> torch.Tensor:
+def _is_qtensor(x) -> bool:
+    """A QTensor of either package: a named tuple of (q, s)."""
+    return isinstance(x, tuple) and getattr(x, "_fields", None) == ("q", "s")
+
+
+def _leaf(arr, shape, where: str, device, dtype):
+    if _is_qtensor(arr):
+        q, s = np.asarray(arr.q), np.asarray(arr.s)
+        if q.dtype != np.int8:
+            raise ValueError(f"{where}: q is {q.dtype}, expected int8")
+        # the scales keep the contraction axis (d_in, after a stacked [L]) as 1
+        axis = 1 if where.startswith("layers/") else 0
+        s_shape = tuple(shape[:axis]) + (1,) + tuple(shape[axis + 1:])
+        return QTensor(_leaf(q, shape, f"{where}.q", device, torch.int8),
+                       _leaf(s, s_shape, f"{where}.s", device, torch.float32))
     arr = np.asarray(arr)
     if arr.dtype.name == "bfloat16":  # ml_dtypes' bf16, which torch cannot read
         arr = arr.astype(np.float32)  # exact; `dtype` rounds it back
@@ -35,7 +52,8 @@ def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig, device=None,
                     dtype: torch.dtype = torch.float32) -> llama.Params:
     """JAX llama pytree (numpy leaves) -> the port's parameter dict on `device`.
 
-    A JAX tree with per-layer lists (scan_layers=False) is stacked on [L]."""
+    A JAX tree with per-layer lists (scan_layers=False) is stacked on [L].
+    int8 leaves (of a scanned tree) keep their dtypes whatever `dtype` is."""
     dev = resolve_device(device)
     shapes = llama.param_shapes(cfg)
     want = set(shapes)
@@ -60,9 +78,13 @@ def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig, device=None,
 
 def params_to_numpy(params: llama.Params) -> Dict[str, Any]:
     """The port's parameters -> a numpy tree in the JAX layout (f32 for bf16,
-    which numpy lacks; f32 tensors come back bit for bit)."""
+    which numpy lacks; f32 tensors come back bit for bit). A QTensor comes
+    back as a QTensor of numpy q and s, from which a test rebuilds the JAX
+    package's own."""
 
-    def to_np(t: torch.Tensor) -> np.ndarray:
+    def to_np(t):
+        if isinstance(t, QTensor):
+            return QTensor(to_np(t.q), to_np(t.s))
         t = t.detach().cpu()
         return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
 

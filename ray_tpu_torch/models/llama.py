@@ -3,8 +3,10 @@
 Parameters are a plain dict of tensors with the JAX package's tree and einsum
 layout, layers stacked on a leading [L] axis: ``wq [L,d,H,hd]``, ``wk/wv
 [L,d,Hkv,hd]``, ``wo [L,H,hd,d]``, ``w_gate/w_up [L,d,ff]``, ``w_down
-[L,ff,d]``, ``embed [V,d]``, ``lm_head [d,V]``. Weights are cast to the
-activation dtype at use (a no-op when they are stored in it). Architecture:
+[L,ff,d]``, ``embed [V,d]``, ``lm_head [d,V]``. Weights are read through
+``ops.quant.as_weight``: cast to the activation dtype at use (a no-op when
+they are stored in it), or dequantized when they are int8 ``QTensor`` leaves
+(serving, W8A16). Architecture:
 RMSNorm, rotate-half RoPE (HF convention), GQA, SwiGLU.
 
 Training: ``loss_fn`` is next-token cross entropy, differentiated by
@@ -32,6 +34,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from ray_tpu_torch.device import resolve_device
 from ray_tpu_torch.ops.attention import attention
+from ray_tpu_torch.ops.quant import QTensor, as_weight
 
 from .config import ModelConfig
 
@@ -215,13 +218,14 @@ def tree_unflatten(like: Params, leaves: List[Any]) -> Params:
 
 def layer_params(params: Params, i: int) -> Params:
     """Layer i's slice of the stacked layer weights (views, no copies)."""
-    return {name: w[i] for name, w in params["layers"].items()}
+    return {name: w.layer(i) if isinstance(w, QTensor) else w[i]
+            for name, w in params["layers"].items()}
 
 
 def lm_head(params: Params, cfg: ModelConfig) -> torch.Tensor:
     """[d, V] output projection (the embedding's transpose when tied)."""
     head = params["embed"].t() if cfg.tie_embeddings else params["lm_head"]
-    return head.to(cfg.activation_dtype)
+    return as_weight(head, cfg.activation_dtype)
 
 
 # ------------------------------------------------------------------------- forward
@@ -261,9 +265,9 @@ def _block(
     _dense_only(cfg)
     dt = x.dtype
     h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
-    q = torch.einsum("bsd,dhk->bshk", h, lp["wq"].to(dt))
-    k = torch.einsum("bsd,dhk->bshk", h, lp["wk"].to(dt))
-    v = torch.einsum("bsd,dhk->bshk", h, lp["wv"].to(dt))
+    q = torch.einsum("bsd,dhk->bshk", h, as_weight(lp["wq"], dt))
+    k = torch.einsum("bsd,dhk->bshk", h, as_weight(lp["wk"], dt))
+    v = torch.einsum("bsd,dhk->bshk", h, as_weight(lp["wv"], dt))
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
 
@@ -282,13 +286,13 @@ def _block(
     else:
         attn = attention(q, k, v, causal=True, segment_ids=segment_ids,
                          impl=cfg.attention_impl)
-    o = torch.einsum("bshk,hkd->bsd", attn, lp["wo"].to(dt))
+    o = torch.einsum("bshk,hkd->bsd", attn, as_weight(lp["wo"], dt))
     x = x + o
 
     h = rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
-    gate = torch.einsum("bsd,df->bsf", h, lp["w_gate"].to(dt))
-    up = torch.einsum("bsd,df->bsf", h, lp["w_up"].to(dt))
-    down = torch.einsum("bsf,fd->bsd", F.silu(gate) * up, lp["w_down"].to(dt))
+    gate = torch.einsum("bsd,df->bsf", h, as_weight(lp["w_gate"], dt))
+    up = torch.einsum("bsd,df->bsf", h, as_weight(lp["w_up"], dt))
+    down = torch.einsum("bsf,fd->bsd", F.silu(gate) * up, as_weight(lp["w_down"], dt))
     return x + down, new_kv
 
 

@@ -66,7 +66,11 @@ def _entry_point(name):
     tx = train.make_optimizer()
     return {"resolve_device": lambda: resolve_device(),
             "TorchLLMEngine": lambda: TorchLLMEngine(LLMConfig()),
+            "TorchLLMEngine-int8": lambda: TorchLLMEngine(LLMConfig(quantization="int8")),
+            "TorchLLMEngine-spec": lambda: TorchLLMEngine(LLMConfig(num_speculative_tokens=2)),
             "LLMServer": lambda: LLMServer(LLMConfig()),
+            "LLMServer-spec-paged": lambda: LLMServer(LLMConfig(
+                kv_layout="paged", speculative={"num_tokens": 4}, quantization="int8")),
             "llama.init": lambda: llama.init(tiny),
             "init_state": lambda: model_runner.init_state(tiny, 1, 16),
             "init_paged_state": lambda: paged.init_paged_state(tiny, 1, 16, 2, 16),
@@ -74,7 +78,8 @@ def _entry_point(name):
             "make_train_step": lambda: train.make_train_step(tiny, tx)}[name]
 
 
-@pytest.mark.parametrize("name", ["resolve_device", "TorchLLMEngine", "LLMServer",
+@pytest.mark.parametrize("name", ["resolve_device", "TorchLLMEngine", "TorchLLMEngine-int8",
+                                  "TorchLLMEngine-spec", "LLMServer", "LLMServer-spec-paged",
                                   "llama.init", "init_state", "init_paged_state",
                                   "train.init_state",
                                   "make_train_step"])

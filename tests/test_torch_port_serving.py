@@ -367,8 +367,8 @@ def test_loop_crash_fails_in_flight_requests_and_keeps_serving(pt_params, monkey
 
 
 @pytest.mark.parametrize("kw", [dict(kv_layout="paged", data_parallel_size=2),
-                                dict(num_speculative_tokens=2),
-                                dict(quantization="int8"), dict(tensor_parallel_size=2),
+                                dict(expert_parallel_size=2),
+                                dict(data_parallel_size=2), dict(tensor_parallel_size=2),
                                 dict(kv_layout="paged", pipeline_parallel_size=2)])
 def test_config_refuses_what_the_slice_does_not_serve(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP A"):
