@@ -75,7 +75,22 @@ Phases, each fatal on failure (the script exits non-zero and prints no result):
   8. the training numerics at full width: llama8b-geom2 in f32 at B1 S256,
      loss_fn's value and every parameter's gradient through the kernels,
      with remat full and dots, against attention_impl="reference";
-  9. a JSON line of the kernels, the card's name and power limit, and last the
+  9. MoE serving: mixtral-8x7b at full width and depth (32 layers, 8
+     experts, top-2) with LLMConfig(quantization="int8"), which starts it
+     in int8 one layer at a time (its bf16 weights do not fit the card):
+     start seconds, weight bytes against bf16 and the peak (< 60 GiB); the
+     no-drop check (capacity factor 4.0: a 64-token prefill and 8 greedy
+     decode steps against llama.forward over the sequence, slot and paged,
+     within 2e-2 of max|ref| with f32 activations; bf16 reported); 3 solo
+     greedy requests (buckets 128 / 512 / 1024) and 4 concurrent ones;
+     torch.profiler over one 8-slot decode step and one 512-token prefill,
+     and one layer's MoE MLP by part (dequant, expert GEMMs, dispatch
+     einsums, the rest); an n-gram speculative request (k = 4) on P + C +
+     P; then paged with bench_serve's settings on the same weights (a cold
+     prompt, a cold and a warm one sharing a 512-token prefix, a chunked
+     one). Every request finishes with its tokens; B1a launches n_layers
+     times per whole prefill and never for a suffix or a chunk;
+ 10. a JSON line of the kernels, the card's name and power limit, and last the
      line {"ok": true, "device": {...}}.
 With ``--json PATH`` a copy of every number is written to PATH as JSON.
 """
@@ -535,7 +550,7 @@ def main_path(torch, fa, card):
     if prefills < len(plan) or launches != n_layers * prefills:
         raise SystemExit(f"flash launches {launches} != n_layers {n_layers} x prefills "
                          f"{prefills}: the prefill path did not run through the kernel")
-    profile = where_time_goes(torch, server)
+    profile = where_time_goes(torch, eng)
     params = eng.params  # the paged phase serves the same weights
     server.shutdown()
     del server, eng
@@ -588,12 +603,11 @@ def profile_once(torch, name, fn):
                 top=[dict(name=k[0][:90], ms=k[1], count=k[2]) for k in kernels[:8]])
 
 
-def where_time_goes(torch, server):
+def where_time_goes(torch, eng):
     """torch.profiler over one prefill (bucket 512) and one 8-slot decode step
-    of the served model."""
+    of an engine's model."""
     from ray_tpu_torch.llm import model_runner
 
-    eng = server.engine
     cfg = eng.model_config
     state = model_runner.init_state(cfg, eng.config.max_num_seqs, eng.config.max_model_len)
     tokens = torch.randint(3, 259, (1, 512), device="cuda")
@@ -1390,6 +1404,267 @@ def spec_path(torch, fa, card, params):
     return out
 
 
+# the MoE phase: mixtral-8x7b with int8 weights on one card (its bf16
+# weights, 93.4 GB, do not fit the card's 80 GB)
+MOE = dict(model_source="mixtral-8x7b", quantization="int8", max_num_seqs=8, max_model_len=1024)
+MOE_NODROP = 4.0  # capacity factor at which C = T: no pick is dropped, prefill == decode
+MOE_STEPS = 8  # greedy decode steps of the no-drop check
+MOE_GEN = 32  # tokens per served MoE request
+MOE_START_PEAK_GIB = 60.0
+
+
+def moe_ids(torch, gen, n, vocab=32000):
+    """n token ids inside mixtral's vocabulary, from a CPU generator."""
+    return torch.randint(3, vocab, (n,), generator=gen).tolist()
+
+
+def counted(torch, fa, eng, fn):
+    """fn() with the B1a count zeroed just before and read just after ->
+    (fn's result, B1a launches, prefills the engine ran)."""
+    torch.cuda.synchronize()
+    fa.reset_launch_count()
+    prefills0 = eng.num_prefills
+    out = fn()
+    torch.cuda.synchronize()
+    return out, fa.launch_count(), eng.num_prefills - prefills0
+
+
+def moe_consistency(torch, params, mcfg, dtype):
+    """The no-drop regime (capacity factor MOE_NODROP, where C = T, the
+    regime in which tests/test_moe.py:76-94 holds prefill and decode equal):
+    a 64-token prompt prefilled (through B1a) and MOE_STEPS greedy decode
+    steps in the slot layout, the same tokens through the paged prefill and
+    decode step (32-token blocks), against llama.forward over the whole
+    sequence with plain attention; activations in `dtype`, the same int8
+    weights. -> max|d| / max|ref| per position, per layout."""
+    from ray_tpu_torch.llm import model_runner, paged
+    from ray_tpu_torch.models import llama
+
+    cfg = dataclasses.replace(mcfg, moe_capacity_factor=MOE_NODROP, dtype=dtype)
+    ids = moe_ids(torch, torch.Generator().manual_seed(22), 64)
+    n = len(ids)
+    active = torch.tensor([False, True], device="cuda")
+    with torch.no_grad():
+        state = model_runner.init_state(cfg, 2, 128)
+        state, last = model_runner.prefill(params, state, padded_ids(torch, ids, n), n, 1, cfg)
+        slot, toks = [last], [int(last.argmax())]
+        for _ in range(MOE_STEPS):
+            _, lg = model_runner.decode_step(params, state, torch.tensor([0, toks[-1]],
+                                                                         device="cuda"),
+                                             active, cfg)
+            slot.append(lg[1])
+            toks.append(int(lg[1].argmax()))
+        del state
+        pstate = paged.init_paged_state(cfg, 2, 128, 4, 32)
+        k, v, plast = model_runner.prefill_detached(params, padded_ids(torch, ids, n), n, cfg)
+        paged.install_prefill(pstate, k, v, [0, 1], n, 1, 2)
+        paged.append_block(pstate, 1, 2, 2)
+        pag = [plast]
+        for t in range(MOE_STEPS):
+            _, lg = paged.decode_step_paged(params, pstate, torch.tensor([0, toks[t]], device="cuda"),
+                                            active, cfg)
+            pag.append(lg[1])
+        del pstate, k, v
+        ref, _ = llama.forward(params, torch.tensor([ids + toks[:MOE_STEPS]], device="cuda"),
+                               dataclasses.replace(cfg, attention_impl="reference"))
+    torch.cuda.synchronize()
+    out = {layout: [rel_err(got[t], ref[0, n - 1 + t]) for t in range(MOE_STEPS + 1)]
+           for layout, got in (("slot", slot), ("paged", pag))}
+    finite = all(bool(torch.isfinite(x).all()) for x in slot + pag)
+    del ref
+    torch.cuda.empty_cache()
+    return out, finite
+
+
+def moe_layer_breakdown(torch, params, mcfg, tokens):
+    """One layer's MoE MLP of the served model at `tokens` tokens, by CUDA
+    events: the whole moe_mlp; the dequant of its three int8 expert stacks;
+    the three expert GEMMs on the dequantized weights; the dispatch and
+    combine einsums ([T, E, C] against [T, D] and [E, C, D]); the rest
+    (routing, the one-hot dispatch masks, SiLU) is the difference."""
+    from ray_tpu_torch.models import llama, moe
+    from ray_tpu_torch.ops.quant import as_weight
+
+    bf16 = torch.bfloat16
+    lp = llama.layer_params(params, 0)
+    e, d, c = mcfg.n_experts, mcfg.d_model, moe.expert_capacity(mcfg, tokens)
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    x = torch.randn(tokens, d, generator=gen, device="cuda").to(bf16)
+    names = ("w_gate", "w_up", "w_down")
+    with torch.no_grad():
+        whole = time_ms(lambda: moe.moe_mlp(x, lp["router"], *(lp[k] for k in names), mcfg),
+                        iters=10)
+        dequant = time_ms(lambda: [as_weight(lp[k], bf16) for k in names], iters=10)
+        wg, wu, wd = (as_weight(lp[k], bf16) for k in names)
+        xin = torch.randn(e, c, d, generator=gen, device="cuda").to(bf16)
+        act = torch.randn(e, c, mcfg.d_ff, generator=gen, device="cuda").to(bf16)
+        gemm = time_ms(lambda: (torch.einsum("ecd,edf->ecf", xin, wg),
+                                torch.einsum("ecd,edf->ecf", xin, wu),
+                                torch.einsum("ecf,efd->ecd", act, wd)), iters=10)
+        disp = (torch.rand(tokens, e, c, generator=gen, device="cuda") < 2.0 / (e * c)).to(bf16)
+        dispatch = time_ms(lambda: (torch.einsum("tec,td->ecd", disp, x),
+                                    torch.einsum("tec,ecd->td", disp, xin)), iters=10)
+    del wg, wu, wd, xin, act, disp
+    torch.cuda.empty_cache()
+    return dict(tokens=tokens, capacity=c, whole_ms=whole, dequant_ms=dequant, gemm_ms=gemm,
+                dispatch_ms=dispatch, rest_ms=whole - dequant - gemm - dispatch)
+
+
+def moe_path(torch, fa, card):
+    """mixtral-8x7b at full width and depth (32 layers, 8 experts, top-2,
+    d 4096, d_ff 14336, GQA 32/8) with int8 weights on one card: the engine
+    starts it in int8 without holding its bf16 copy; the no-drop check; 3
+    solo greedy requests (buckets 128 / 512 / 1024) and 4 concurrent ones in
+    the slot layout; one n-gram speculative request (k = 4) on P + C + P;
+    on the same weights the paged layout with bench_serve's settings (a
+    cold prompt, a warm one sharing a 512-token prefix, a chunked one); a
+    profile of one 8-slot decode step and one 512-token prefill, and one
+    layer's MoE MLP by part. B1a launches n_layers times per whole prefill
+    and never for a suffix or a chunk; every request finishes with its
+    tokens."""
+    from ray_tpu_torch.llm import LLMConfig, SamplingParams, TorchLLMEngine
+    from ray_tpu_torch.models import llama
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    if held > 2 * 2**30:
+        raise SystemExit(f"{held / 2**30:.2f} GiB still allocated before the MoE phase")
+    eng = TorchLLMEngine(LLMConfig(**MOE))
+    mcfg, n_layers = eng.model_config, eng.model_config.n_layers
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    eng.start()
+    torch.cuda.synchronize()
+    start_s = time.perf_counter() - t0
+    start_peak = torch.cuda.max_memory_allocated() / 2**30
+    int8_bytes = tree_bytes(eng.params)
+    bf16_bytes = 2 * sum(
+        int(torch.Size(shape).numel())
+        for val in llama.param_shapes(mcfg).values()
+        for shape in (val.values() if isinstance(val, dict) else [val]))
+    print(f"  {mcfg.name} started in int8 in {start_s:.2f} s (seeded init, each layer "
+          f"quantized as drawn): weights {int8_bytes / 1e9:.3f} GB int8 against "
+          f"{bf16_bytes / 1e9:.3f} GB bf16 ({int8_bytes / bf16_bytes:.3f}); peak during start "
+          f"{start_peak:.2f} GiB (limit {MOE_START_PEAK_GIB}) [{card}]", flush=True)
+    if start_peak >= MOE_START_PEAK_GIB:
+        raise SystemExit("the int8 start held more than the int8 model and one layer")
+    out = dict(start_s=start_s, start_peak_gib=start_peak, weight_bytes_int8=int8_bytes,
+               weight_bytes_bf16=bf16_bytes, tol=PAGED_TOL)
+
+    # ---- the no-drop check: f32 activations gated, bf16 reported ----
+    for dtype in ("float32", "bfloat16"):
+        errs, finite = moe_consistency(torch, eng.params, mcfg, dtype)
+        out[f"nodrop_{dtype}"] = errs
+        print(f"  no-drop (capacity factor {MOE_NODROP}), {dtype} activations, int8 weights: "
+              f"prefill + {MOE_STEPS} decode logits vs llama.forward max|d| / max|ref|, slot "
+              f"{[f'{e:.2e}' for e in errs['slot']]}, paged "
+              f"{[f'{e:.2e}' for e in errs['paged']]} (tol {PAGED_TOL}"
+              f"{'' if dtype == 'float32' else ', not gated: top-2 near-ties flip in bf16'})",
+              flush=True)
+        if not finite or (dtype == "float32" and max(errs["slot"] + errs["paged"]) > PAGED_TOL):
+            raise SystemExit("MoE prefill and decode disagree with the whole forward")
+
+    # ---- served requests, default capacity ----
+    greedy = dict(temperature=0.0, stop_token_ids=[-1])
+    gen = torch.Generator().manual_seed(21)
+    launches = 0
+    solo, n, prefills = counted(torch, fa, eng, lambda: [
+        solo_request(eng, eng.tokenizer.encode(prompt_text(c)), MOE_GEN)
+        for c in (120, 500, 1000)])
+    for r in solo:
+        print(f"  mixtral int8, solo prompt {r['prompt_tokens']} tokens: TTFT "
+              f"{r['ttft_ms']:.2f} ms, decode {r['decode_tok_s']:.2f} tok/s over {r['tokens']} "
+              f"tokens [{card}]", flush=True)
+    if prefills != 3 or n != n_layers * prefills:
+        raise SystemExit(f"solo: flash launches {n} over {prefills} prefills")
+    launches += n
+    reqs = [(moe_ids(torch, gen, m), SamplingParams(max_tokens=MOE_GEN, **greedy))
+            for m in (40, 100, 200, 300)]
+    (_, wall), n, prefills = counted(torch, fa, eng, lambda: serve_together(eng, reqs))
+    print(f"  4 concurrent requests: {4 * MOE_GEN} tokens in {wall:.3f} s = "
+          f"{4 * MOE_GEN / wall:.2f} tok/s aggregate, flash launches {n} over {prefills} "
+          f"prefills [{card}]", flush=True)
+    if prefills != 4 or n != n_layers * prefills:
+        raise SystemExit(f"concurrent: flash launches {n} over {prefills} prefills")
+    launches += n
+    out.update(solo=solo, concurrent=dict(wall_s=wall, tok_s=4 * MOE_GEN / wall))
+    # by kind: GEMMs ("matmul"), dtype converts and other copies ("copy", the
+    # dequant's int8 -> bf16), the rest ("other": the dequant's scale
+    # products, routing, norms)
+    out["profile"] = where_time_goes(torch, eng)
+    out["layer"] = [moe_layer_breakdown(torch, eng.params, mcfg, t) for t in (8, 512)]
+    for r in out["layer"]:
+        print(f"  one layer's MoE MLP at {r['tokens']} tokens (C {r['capacity']}): whole "
+              f"{r['whole_ms']:.3f} ms = dequant of 3 expert stacks {r['dequant_ms']:.3f} + "
+              f"expert GEMMs {r['gemm_ms']:.3f} + dispatch/combine einsums "
+              f"{r['dispatch_ms']:.3f} + routing and the rest {r['rest_ms']:.3f} [{card}]",
+              flush=True)
+
+    # ---- n-gram speculation, k = 4, on P + C + P ----
+    p_ids = moe_ids(torch, gen, 40)
+    c_ids = eng.generate_sync(p_ids, SamplingParams(max_tokens=MOE_GEN, **greedy)).token_ids
+    eng.shutdown()
+    params = eng.params
+    seng = TorchLLMEngine(LLMConfig(**MOE, num_speculative_tokens=SPEC_K, num_decode_steps=1),
+                          params=params)
+    try:
+        spec, n, prefills = counted(torch, fa, seng, lambda: solo_request(
+            seng, p_ids + c_ids + p_ids, MOE_GEN))
+    finally:
+        seng.shutdown()
+    spec.update(drafted=seng.num_spec_drafted, accepted=seng.num_spec_accepted)
+    print(f"  n-gram speculation k={SPEC_K} on P + C + P ({spec['prompt_tokens']} tokens): "
+          f"TTFT {spec['ttft_ms']:.2f} ms, {spec['decode_tok_s']:.2f} tok/s, accepted "
+          f"{spec['accepted']} of {spec['drafted']} drafts, flash launches {n} [{card}]",
+          flush=True)
+    if prefills != 1 or n != n_layers or not spec["drafted"]:
+        raise SystemExit(f"speculation: drafted {spec['drafted']}, flash launches {n}")
+    launches += n
+    out["spec"] = spec
+    del seng
+
+    # ---- paged, bench_serve's settings: cold, warm (512-token prefix), chunked ----
+    peng = TorchLLMEngine(LLMConfig(**dict(MOE, **PAGED)), params=params)
+    prefix = moe_ids(torch, gen, 512)
+    paged_runs = []
+    try:
+        for kind, ids in (("cold", moe_ids(torch, gen, 501)),
+                          ("prefix_cold", prefix + moe_ids(torch, gen, 64)),
+                          ("prefix_warm", prefix + moe_ids(torch, gen, 64))):
+            hits0 = peng.metrics().get("prefix_cache_hit_tokens", 0)
+            r, n, prefills = counted(torch, fa, peng, lambda: solo_request(peng, ids, MOE_GEN))
+            r.update(kind=kind, launches=n, prefills=prefills,
+                     hit_tokens=peng.metrics()["prefix_cache_hit_tokens"] - hits0)
+            paged_runs.append(r)
+    finally:
+        peng.shutdown()
+    del peng
+    ceng = TorchLLMEngine(LLMConfig(**dict(MOE, **dict(PAGED, num_kv_blocks=64)),
+                                    prefill_chunk=256), params=params)
+    try:
+        r, n, prefills = counted(torch, fa, ceng, lambda: solo_request(
+            ceng, moe_ids(torch, gen, 700), MOE_GEN))
+    finally:
+        ceng.shutdown()
+    del ceng
+    r.update(kind="chunked", launches=n, prefills=prefills, hit_tokens=0)
+    paged_runs.append(r)
+    for r in paged_runs:
+        print(f"  paged {r['kind']}: prompt {r['prompt_tokens']} tokens, hit {r['hit_tokens']}, "
+              f"TTFT {r['ttft_ms']:.2f} ms, decode {r['decode_tok_s']:.2f} tok/s, flash "
+              f"launches {r['launches']} [{card}]", flush=True)
+    got = [(r["hit_tokens"], r["launches"]) for r in paged_runs]
+    want = [(0, n_layers), (0, n_layers), (512, 0), (0, 0)]
+    if got != want:
+        raise SystemExit(f"paged MoE: (hit tokens, flash launches) {got}, want {want}")
+    launches += sum(r["launches"] for r in paged_runs)
+    out.update(paged=paged_runs, launches=launches)
+    del params, eng
+    torch.cuda.empty_cache()
+    return out
+
+
 SASS_OPS = ("HGMMA", "UTMALDG", "UTMASTG", "HMMA")  # wgmma, TMA load / store, mma.sync
 # the bf16 kernels of B1a, B1b and B1c at D = 64 and 128
 WGMMA_KERNELS = tuple(f"flash_{k}_bf16_wgmma_kernel<{d}>"
@@ -1523,6 +1798,9 @@ def main() -> int:
     print("[8] training gradients against the plain path", flush=True)
     train_check = train_numerics(torch, fa)
 
+    print("[9] MoE serving: mixtral-8x7b, int8, one card", flush=True)
+    moe_served = moe_path(torch, fa, card)
+
     sources = {"flash_fwd": ("ray_tpu_torch/ops/csrc/flash_fwd.cu",
                              "ray_tpu/ops/flash_attention.py:123"),
                "flash_bwd_dq": ("ray_tpu_torch/ops/csrc/flash_bwd.cu",
@@ -1553,6 +1831,7 @@ def main() -> int:
     kernels[0]["launches_int8"] = quant_served["launches"]
     kernels[0]["launches_spec"] = sum(r["launches"] for layout in ("slot", "paged")
                                       for r in spec_served[layout].values())
+    kernels[0]["launches_moe"] = moe_served["launches"]
     kernels[0]["design"] = (
         "bf16: a producer warpgroup keeps a 3-stage TMA ring of 128-row K/V tiles "
         "(mbarrier full/empty); two consumer warpgroups of 64 q rows run S = QK^T and "
@@ -1578,7 +1857,8 @@ def main() -> int:
                   timings=timings, training_timings=train_timings, sdpa_backward=sdpa_bwd,
                   served=served, numerics=numerics, paged=paged_served,
                   int8=quant_served, spec=spec_served,
-                  trained=trained_runs, train_numerics=train_check, kernels=kernels,
+                  trained=trained_runs, train_numerics=train_check, moe=moe_served,
+                  kernels=kernels,
                   total_s=total_s)
     if json_path:
         os.makedirs(os.path.dirname(os.path.abspath(json_path)), exist_ok=True)

@@ -3,7 +3,9 @@
 The JAX package's fields that the port serves, and those that select what
 it does not serve yet: the slot and paged KV layouts (with the prefix cache)
 on one device, with whole-prompt or chunked prefill, n-gram speculative
-decoding and int8 weights (W8A16). The rest raises NotImplementedError naming
+decoding and int8 weights (W8A16), for dense and mixture-of-experts models
+(``engine_kwargs`` overrides the model config, e.g. its
+``moe_capacity_factor``). The rest raises NotImplementedError naming
 its ROADMAP item at construction. The JAX engine's checks of the paged,
 chunked, speculative and quantization settings (ray_tpu/llm/engine.py:283-307)
 run here, at construction, before any weight is built, with the same errors.

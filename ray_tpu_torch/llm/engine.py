@@ -20,8 +20,11 @@ host proposes up to k drafts per greedy slot from its token history, one
 verify forward scores the window and the accepted prefix plus a bonus token
 emit at once; with a fused burst width m > 1 the proposal runs on the device
 too, m windows per host sync. quantization="int8" stores the layer matmuls
-and an untied head as int8 with per-output-channel scales (W8A16),
-quantized once the weights are on the device.
+(expert stacks included) and an untied head as int8 with per-output-channel
+scales (W8A16): given weights are quantized once they are on the device, and
+the seeded init quantizes each layer as it is drawn, so a model whose float
+copy would not fit the card (mixtral-8x7b) starts in int8. Mixture-of-experts
+configs run in both layouts, with speculation and int8.
 
 P/D disaggregation (ROADMAP A2e), pipeline parallelism (A6) and telemetry
 (A11) are later slices.
@@ -44,7 +47,7 @@ import torch
 from ray_tpu_torch.device import resolve_device
 from ray_tpu_torch.models import llama
 from ray_tpu_torch.models.config import torch_dtype
-from ray_tpu_torch.ops.quant import quantize_llama_params
+from ray_tpu_torch.ops.quant import QTensor, quantize_llama_params
 
 from . import model_runner, paged
 from . import config as llm_config
@@ -107,6 +110,8 @@ class TorchLLMEngine(LLMEngine):
 
     `params` (a llama parameter dict of tensors) replaces the random init from
     seed 0; either way the weights are stored in ``config.dtype`` at start.
+    int8 ``QTensor`` leaves in `params` (an engine's quantized weights, or a
+    bridged int8 tree) are moved to the device as they are.
     `device` defaults to CUDA and raises when there is none; pass "cpu" for
     the plain path."""
 
@@ -149,8 +154,9 @@ class TorchLLMEngine(LLMEngine):
     # -- lifecycle ---------------------------------------------------------------
     def start(self) -> None:
         """Place the weights on the device in config.dtype, then quantize them
-        when config.quantization says so (thread-safe, idempotent). The KV
-        state and the scheduler loop start on first use."""
+        when config.quantization says so (thread-safe, idempotent); the
+        seeded init quantizes layer by layer as it draws. The KV state and
+        the scheduler loop start on first use."""
         with self._start_lock:
             if self._started:
                 return
@@ -160,16 +166,24 @@ class TorchLLMEngine(LLMEngine):
             self._fused_fixed = 1 if self._fused_auto else _pow2_floor(k_cfg)
             dtype = torch_dtype(c.dtype)
             if self._params_in is not None:
+                def place(v):
+                    if isinstance(v, QTensor):
+                        return QTensor(v.q.to(self.device), v.s.to(self.device))
+                    return v.to(self.device, dtype)
+
                 self.params = {
-                    name: ({k: v.to(self.device, dtype) for k, v in val.items()}
-                           if name == "layers" else val.to(self.device, dtype))
+                    name: ({k: place(v) for k, v in val.items()}
+                           if name == "layers" else place(val))
                     for name, val in self._params_in.items()}
+                if c.quantization:
+                    # on the device, one layer at a time (ray_tpu/llm/engine.py:325-331)
+                    self.params = quantize_llama_params(self.params)
             else:
-                self.params = llama.init(cfg, seed=0, device=self.device, dtype=dtype)
+                # int8: each layer quantized as it is drawn, never the whole
+                # float model at once
+                self.params = llama.init(cfg, seed=0, device=self.device, dtype=dtype,
+                                         quantize_int8=bool(c.quantization))
             self._params_in = None
-            if c.quantization:
-                # on the device, one layer at a time (ray_tpu/llm/engine.py:325-331)
-                self.params = quantize_llama_params(self.params)
             self._active = {s: None for s in range(c.max_num_seqs)}
             self._gen = torch.Generator(device=self.device)
             self._gen.manual_seed(0)

@@ -21,7 +21,6 @@ from __future__ import annotations
 from typing import NamedTuple, Optional, Tuple
 
 import torch
-import torch.nn.functional as F
 
 from ray_tpu_torch.device import resolve_device
 from ray_tpu_torch.models import llama
@@ -53,6 +52,15 @@ def init_state(cfg: ModelConfig, slots: int, max_len: int, device=None,
 
 # ------------------------------------------------------------------------- prefill
 
+def prompt_mask(cfg: ModelConfig, s_pad: int, true_len: int, device):
+    """[1, s_pad] f32, 1 at the prompt's real positions, for a MoE config:
+    pad positions claim no expert capacity (ray_tpu/llm/model_runner.py:93-96).
+    None for a dense config, which has nothing to mask."""
+    if cfg.n_experts == 0:
+        return None
+    return (torch.arange(s_pad, device=device) < true_len).float()[None, :]
+
+
 @torch.no_grad()
 def prefill(
     params,
@@ -74,7 +82,8 @@ def prefill(
         raise ValueError(f"prompt bucket {s_pad} exceeds the slot length {state.k.shape[2]}")
     view = llama.KVCache(k=state.k[:, slot:slot + 1, :s_pad],
                          v=state.v[:, slot:slot + 1, :s_pad], length=0)
-    logits, _ = llama.forward(params, tokens, cfg, cache=view)
+    logits, _ = llama.forward(params, tokens, cfg, cache=view,
+                              token_mask=prompt_mask(cfg, s_pad, true_len, tokens.device))
     state.lengths[slot] = true_len
     return state, logits[0, true_len - 1].float()
 
@@ -91,8 +100,10 @@ def prefill_detached(
     them into blocks; a chunk-assembled prompt goes to a slot via install_kv.
     Attention is causal self-attention over S_pad, the flash kernel's case on
     CUDA."""
-    cache = llama.init_kv_cache(cfg, batch=1, max_len=tokens.shape[1], device=tokens.device)
-    logits, cache = llama.forward(params, tokens, cfg, cache=cache)
+    s_pad = tokens.shape[1]
+    cache = llama.init_kv_cache(cfg, batch=1, max_len=s_pad, device=tokens.device)
+    logits, cache = llama.forward(params, tokens, cfg, cache=cache,
+                                  token_mask=prompt_mask(cfg, s_pad, true_len, tokens.device))
     return cache.k, cache.v, logits[0, true_len - 1].float()
 
 
@@ -109,7 +120,7 @@ def install_kv(state: DecodeState, k: torch.Tensor, v: torch.Tensor, true_len: i
 
 # -------------------------------------------------------------------------- decode
 
-def _layer_core(x, lp, cfg: ModelConfig, pos, cache_rw):
+def _layer_core(x, lp, cfg: ModelConfig, pos, cache_rw, token_mask):
     """One layer over a window of W tokens for every slot, shared by decode
     (W = 1) and speculative verify (W = k + 1) in every cache layout.
 
@@ -117,7 +128,9 @@ def _layer_core(x, lp, cfg: ModelConfig, pos, cache_rw):
     and attends to the cache positions up to its own (causal within the
     window, the whole history before it). cache_rw(k_new [S,W,KV,HD], v_new)
     writes the window's K/V into its layout in place and returns per-slot
-    full-history views (ck, cv) [S,max_len,KV,HD] for attention."""
+    full-history views (ck, cv) [S,max_len,KV,HD] for attention. token_mask
+    [S,W] f32 (MoE only): an inactive slot's tokens claim no expert
+    capacity; the S*W tokens route as one group, as in JAX."""
     dt = x.dtype
     s, wlen, _ = x.shape
     kvh, hd = cfg.n_kv_heads, cfg.head_dim
@@ -142,10 +155,7 @@ def _layer_core(x, lp, cfg: ModelConfig, pos, cache_rw):
     o = o.reshape(s, wlen, cfg.n_heads, hd)
     x = x + torch.einsum("slhk,hkd->sld", o, as_weight(lp["wo"], dt))
 
-    h = llama.rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
-    gate = torch.einsum("sld,df->slf", h, as_weight(lp["w_gate"], dt))
-    up = torch.einsum("sld,df->slf", h, as_weight(lp["w_up"], dt))
-    down = torch.einsum("slf,fd->sld", F.silu(gate) * up, as_weight(lp["w_down"], dt))
+    down, _ = llama.mlp(llama.rms_norm(x, lp["mlp_norm"], cfg.norm_eps), lp, cfg, token_mask)
     return x + down
 
 
@@ -191,16 +201,22 @@ def _slot_rw(ck, cv, writes):
     return cache_rw
 
 
-def _forward_window(params, window, cfg: ModelConfig, lengths, layer_rw):
+def _forward_window(params, window, cfg: ModelConfig, lengths, layer_rw, active):
     """The model over a window of tokens [S,W] per slot in any cache layout
     (layer_rw(i) is layer i's cache adapter) -> logits [S,W,vocab] f32.
     Lengths are not advanced. A draft copied from the prompt may hold an
     out-of-vocabulary id: the lookup clamps it as JAX's gather does, and the
-    greedy accept then rejects it (an argmax is always in the vocabulary)."""
+    greedy accept then rejects it (an argmax is always in the vocabulary).
+    An inactive slot's window claims no MoE expert capacity (JAX masks a
+    decode step by `active` and a verify window by `active` repeated W
+    times, not by the draft length)."""
     x = llama._embed_lookup(params["embed"], window, cfg.activation_dtype)  # [S,W,D]
     pos = _window_positions(lengths, window.shape[1])
+    token_mask = None
+    if cfg.n_experts > 0:
+        token_mask = active.float()[:, None].expand(window.shape)
     for i in range(cfg.n_layers):
-        x = _layer_core(x, llama.layer_params(params, i), cfg, pos, layer_rw(i))
+        x = _layer_core(x, llama.layer_params(params, i), cfg, pos, layer_rw(i), token_mask)
     x = llama.rms_norm(x, params["final_norm"], cfg.norm_eps)
     return torch.einsum("sld,dv->slv", x, llama.lm_head(params, cfg)).float()
 
@@ -228,7 +244,7 @@ def _decode_layers(params, tokens, active, cfg: ModelConfig, lengths, layer_rw):
     """A decode step's model pass over any cache layout: layer_rw(i) is layer
     i's cache adapter. Advances the active slots' lengths in place; returns
     logits [slots, vocab] f32."""
-    logits = _forward_window(params, tokens[:, None], cfg, lengths, layer_rw)[:, 0]
+    logits = _forward_window(params, tokens[:, None], cfg, lengths, layer_rw, active)[:, 0]
     lengths.add_(active.to(lengths.dtype))
     return logits
 
@@ -302,7 +318,7 @@ def spec_driver(params, window, draft_len, active, cfg: ModelConfig, lengths, la
     layers -> norm -> head -> accept); layer_rw(i) is layer i's window
     adapter. Advances lengths by n_acc + 1 for active slots in place.
     -> (tokens [S,W], n_acc [S], logits [S,W,vocab] f32)."""
-    logits = _forward_window(params, window, cfg, lengths, layer_rw)
+    logits = _forward_window(params, window, cfg, lengths, layer_rw, active)
     greedy = torch.argmax(logits, dim=-1)
     greedy, n_acc, advance = spec_accept(window, greedy, draft_len, active, temperature,
                                          top_p, top_k, logits[:, 0], generator)

@@ -33,8 +33,8 @@ from ray_tpu_torch.device import resolve_device
 from ray_tpu_torch.models import llama
 from ray_tpu_torch.models.config import ModelConfig
 
-from .model_runner import (_burst, _decode_layers, _window_positions, propose_ngram_device,
-                           spec_driver, spec_multi_impl)
+from .model_runner import (_burst, _decode_layers, _window_positions, prompt_mask,
+                           propose_ngram_device, spec_driver, spec_multi_impl)
 
 
 class PagedState(NamedTuple):
@@ -279,8 +279,9 @@ def _prefill_suffix_impl(params, ctx_k, ctx_v, tokens, true_suffix_len: int,
                                 device=tokens.device)
     cache.k[:, :, :cached_len] = ctx_k
     cache.v[:, :, :cached_len] = ctx_v
-    logits, cache = llama.forward(params, tokens, cfg,
-                                  cache=cache._replace(length=cached_len))
+    logits, cache = llama.forward(params, tokens, cfg, cache=cache._replace(length=cached_len),
+                                  token_mask=prompt_mask(cfg, s_pad, true_suffix_len,
+                                                         tokens.device))
     last = logits[0, true_suffix_len - 1].float()
     return cache.k[:, :, cached_len:], cache.v[:, :, cached_len:], last
 
@@ -506,7 +507,8 @@ def chunked_prefill(params, prompt_ids: List[int], cfg: ModelConfig, chunk: int,
         piece = prompt_ids[start:start + chunk]
         tokens = torch.zeros((1, chunk), dtype=torch.int64)
         tokens[0, :len(piece)] = torch.as_tensor(piece, dtype=torch.int64)
-        logits, cache = llama.forward(params, tokens.to(dev), cfg, cache=cache)
+        logits, cache = llama.forward(params, tokens.to(dev), cfg, cache=cache,
+                                      token_mask=prompt_mask(cfg, chunk, len(piece), dev))
         if start < n <= start + chunk:
             last = logits[0, (n - 1) - start].float()
     return cache.k, cache.v, last

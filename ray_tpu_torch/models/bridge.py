@@ -7,7 +7,9 @@ checked against ``llama.param_shapes(cfg)``. The JAX side is handed over as
 numpy (``jax.tree_util.tree_map(np.asarray, params)``); this module never
 imports JAX or optax. An int8 leaf (the JAX package's ``QTensor``, from
 ``quantize_llama_params``) crosses as its ``q`` and ``s`` both ways and
-becomes the port's ``ops.quant.QTensor``: q stays int8, s f32.
+becomes the port's ``ops.quant.QTensor``: q stays int8, s f32, its shape the
+weight's with the contraction axis kept as 1 (axis 2 for an expert stack
+[L, E, d_in, out], 1 for the other layer leaves, 0 for the head).
 """
 from __future__ import annotations
 
@@ -17,7 +19,7 @@ import numpy as np
 import torch
 
 from ray_tpu_torch.device import resolve_device
-from ray_tpu_torch.ops.quant import QTensor
+from ray_tpu_torch.ops.quant import QTensor, layer_contract_axis, scale_shape
 from ray_tpu_torch.train.optim import AdamWState
 
 from . import llama
@@ -29,16 +31,15 @@ def _is_qtensor(x) -> bool:
     return isinstance(x, tuple) and getattr(x, "_fields", None) == ("q", "s")
 
 
-def _leaf(arr, shape, where: str, device, dtype):
+def _leaf(arr, shape, where: str, device, dtype, axis: int = 0):
+    """One leaf; `axis` is its contraction axis, which an int8 leaf's scales
+    keep as 1."""
     if _is_qtensor(arr):
         q, s = np.asarray(arr.q), np.asarray(arr.s)
         if q.dtype != np.int8:
             raise ValueError(f"{where}: q is {q.dtype}, expected int8")
-        # the scales keep the contraction axis (d_in, after a stacked [L]) as 1
-        axis = 1 if where.startswith("layers/") else 0
-        s_shape = tuple(shape[:axis]) + (1,) + tuple(shape[axis + 1:])
         return QTensor(_leaf(q, shape, f"{where}.q", device, torch.int8),
-                       _leaf(s, s_shape, f"{where}.s", device, torch.float32))
+                       _leaf(s, scale_shape(shape, axis), f"{where}.s", device, torch.float32))
     arr = np.asarray(arr)
     if arr.dtype.name == "bfloat16":  # ml_dtypes' bf16, which torch cannot read
         arr = arr.astype(np.float32)  # exact; `dtype` rounds it back
@@ -66,9 +67,11 @@ def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig, device=None,
     if set(layers) != set(shapes["layers"]):
         raise ValueError(f"layer keys {sorted(layers)} != expected "
                          f"{sorted(shapes['layers'])}")
+    ls = shapes["layers"]
     out: llama.Params = {
-        "layers": {name: _leaf(layers[name], shape, f"layers/{name}", dev, dtype)
-                   for name, shape in shapes["layers"].items()},
+        "layers": {name: _leaf(layers[name], shape, f"layers/{name}", dev, dtype,
+                               layer_contract_axis(name, ls))
+                   for name, shape in ls.items()},
     }
     for name, shape in shapes.items():
         if name != "layers":

@@ -49,7 +49,7 @@ class ModelConfig:
     attention_impl: str = "auto"
     pipeline_stages: int = 1
     pipeline_microbatches: int = 0
-    # mixture-of-experts (0 = dense); the MoE path is ROADMAP A3
+    # mixture-of-experts (0 = dense): models/moe.py
     n_experts: int = 0
     moe_top_k: int = 2
     moe_capacity_factor: float = 1.25

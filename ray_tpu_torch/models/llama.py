@@ -1,25 +1,27 @@
-"""Llama-family decoder-only transformer, dense path (port of ray_tpu/models/llama.py).
+"""Llama-family decoder-only transformer (port of ray_tpu/models/llama.py).
 
 Parameters are a plain dict of tensors with the JAX package's tree and einsum
 layout, layers stacked on a leading [L] axis: ``wq [L,d,H,hd]``, ``wk/wv
 [L,d,Hkv,hd]``, ``wo [L,H,hd,d]``, ``w_gate/w_up [L,d,ff]``, ``w_down
-[L,ff,d]``, ``embed [V,d]``, ``lm_head [d,V]``. Weights are read through
-``ops.quant.as_weight``: cast to the activation dtype at use (a no-op when
-they are stored in it), or dequantized when they are int8 ``QTensor`` leaves
-(serving, W8A16). Architecture:
-RMSNorm, rotate-half RoPE (HF convention), GQA, SwiGLU.
+[L,ff,d]``, ``embed [V,d]``, ``lm_head [d,V]``. A mixture-of-experts config
+(n_experts > 0) holds ``router [L,d,E]``, ``w_gate/w_up [L,E,d,ff]`` and
+``w_down [L,E,ff,d]`` in place of the dense MLP, computed by
+``models/moe.py``. Weights are read through ``ops.quant.as_weight``: cast to
+the activation dtype at use (a no-op when they are stored in it), or
+dequantized when they are int8 ``QTensor`` leaves (serving, W8A16).
+Architecture: RMSNorm, rotate-half RoPE (HF convention), GQA, SwiGLU.
 
-Training: ``loss_fn`` is next-token cross entropy, differentiated by
-autograd; attention's gradient goes through the flash kernels' autograd
-Function on CUDA. ``remat_policy`` ``full`` recomputes each layer in the
-backward pass (``torch.utils.checkpoint``); ``dots`` and ``dots_no_batch``
-save the layer's matrix products and recompute the rest (selective
-checkpointing).
+Training: ``loss_fn`` is next-token cross entropy plus the MoE load-balancing
+loss, differentiated by autograd; attention's gradient goes through the
+flash kernels' autograd Function on CUDA. ``remat_policy`` ``full``
+recomputes each layer in the backward pass (``torch.utils.checkpoint``);
+``dots`` and ``dots_no_batch`` save the layer's matrix products and
+recompute the rest (selective checkpointing).
 
 Branches of the JAX module that the port does not run yet raise
-NotImplementedError naming their ROADMAP item: MoE (A3), ring/ulysses
-attention and pipeline stages (A6). The one-hot embedding branch exists only
-for tensor-parallel vocab sharding (A6), which the port does not have yet, so
+NotImplementedError naming their ROADMAP item: ring/ulysses attention and
+pipeline stages (A6). The one-hot embedding branch exists only for
+tensor-parallel vocab sharding (A6), which the port does not have yet, so
 the gather is the whole lookup.
 """
 from __future__ import annotations
@@ -34,38 +36,36 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from ray_tpu_torch.device import resolve_device
 from ray_tpu_torch.ops.attention import attention
-from ray_tpu_torch.ops.quant import QTensor, as_weight
+from ray_tpu_torch.ops.quant import (LLAMA_QUANT_KEYS, QTensor, as_weight, empty_qtensor,
+                                     layer_contract_axis, quantize, quantize_layer_)
 
+from . import moe
 from .config import ModelConfig
 
 Params = Dict[str, Any]
-
-
-def _dense_only(cfg: ModelConfig) -> None:
-    if cfg.n_experts > 0:
-        raise NotImplementedError("mixture-of-experts layers: ROADMAP A3")
 
 
 # ---------------------------------------------------------------------------- init
 
 def param_shapes(cfg: ModelConfig) -> Dict[str, Any]:
     """The parameter tree's shapes (stacked layers), as init() builds it."""
-    _dense_only(cfg)
     d, hd, nh, nkv, ff, n = (cfg.d_model, cfg.head_dim, cfg.n_heads, cfg.n_kv_heads,
                              cfg.d_ff, cfg.n_layers)
+    layer = {
+        "attn_norm": (d,),
+        "wq": (d, nh, hd),
+        "wk": (d, nkv, hd),
+        "wv": (d, nkv, hd),
+        "wo": (nh, hd, d),
+        "mlp_norm": (d,),
+    }
+    if cfg.n_experts > 0:
+        layer.update(moe.expert_shapes(cfg))
+    else:
+        layer.update({"w_gate": (d, ff), "w_up": (d, ff), "w_down": (ff, d)})
     shapes: Dict[str, Any] = {
         "embed": (cfg.vocab_size, d),
-        "layers": {
-            "attn_norm": (n, d),
-            "wq": (n, d, nh, hd),
-            "wk": (n, d, nkv, hd),
-            "wv": (n, d, nkv, hd),
-            "wo": (n, nh, hd, d),
-            "mlp_norm": (n, d),
-            "w_gate": (n, d, ff),
-            "w_up": (n, d, ff),
-            "w_down": (n, ff, d),
-        },
+        "layers": {name: (n,) + shape for name, shape in layer.items()},
         "final_norm": (d,),
     }
     if not cfg.tie_embeddings:
@@ -73,46 +73,75 @@ def param_shapes(cfg: ModelConfig) -> Dict[str, Any]:
     return shapes
 
 
-def init(cfg: ModelConfig, *, seed: int = 0, device=None,
-         dtype: torch.dtype = torch.float32) -> Params:
-    """Scaled-normal init with the JAX package's shapes and scale rules
-    (ray_tpu/models/llama.py:65-110): inputs d^-0.5, wo (2*L*d)^-0.5, w_down
-    (2*L*ff)^-0.5, embed 1.0, lm_head d^-0.5, norms 1. Drawn in f32 from a
-    torch.Generator on the target device (so an 8B model is made on the card),
-    then stored in `dtype`. The numbers are not jax.random's."""
-    dev = resolve_device(device)
-    shapes = param_shapes(cfg)
+def _init_scales(cfg: ModelConfig) -> Dict[str, float]:
+    """Per-leaf init scales of ray_tpu/models/llama.py:65-110 and
+    ray_tpu/models/moe.py:130-141 (0 = ones)."""
     d, ff, n = cfg.d_model, cfg.d_ff, cfg.n_layers
+    scales = {"attn_norm": 0.0, "mlp_norm": 0.0, "final_norm": 0.0, "embed": 1.0,
+              "lm_head": d ** -0.5, "wq": d ** -0.5, "wk": d ** -0.5, "wv": d ** -0.5,
+              "wo": (2 * n * d) ** -0.5}
+    if cfg.n_experts > 0:
+        scales.update(moe.expert_scales(cfg))
+    else:
+        scales.update({"w_gate": d ** -0.5, "w_up": d ** -0.5,
+                       "w_down": (2 * n * ff) ** -0.5})
+    return scales
+
+
+@torch.no_grad()
+def init(cfg: ModelConfig, *, seed: int = 0, device=None,
+         dtype: torch.dtype = torch.float32, quantize_int8: bool = False) -> Params:
+    """Scaled-normal init with the JAX package's shapes and scale rules
+    (ray_tpu/models/llama.py:65-110, moe.py:130-141): inputs d^-0.5, wo
+    (2*L*d)^-0.5, w_down (2*L*ff)^-0.5, embed 1.0, lm_head d^-0.5, norms 1.
+    Drawn in f32 from a torch.Generator on the target device, one layer of
+    one leaf at a time (layer-major: every leaf of layer 0, then layer 1,
+    ...; then embed and lm_head), each stored at once into a preallocated
+    tensor of `dtype`: the peak holds the model plus one layer's slice of
+    one leaf in f32, so an 8B model, or mixtral in int8, is made on the card.
+    The numbers are not jax.random's.
+
+    quantize_int8=True quantizes each layer's matmul slice and the untied
+    head as they are drawn: bit for bit quantize_llama_params(init(cfg,
+    seed=seed, dtype=dtype)), without ever holding the float model."""
+    dev = resolve_device(device)
+    shapes, scales = param_shapes(cfg), _init_scales(cfg)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
 
-    def normal(shape, scale):
+    def draw(shape, scale):
         t = torch.randn(shape, generator=gen, device=dev, dtype=torch.float32)
         return t.mul_(scale).to(dtype)
 
     def ones(shape):
         return torch.ones(shape, device=dev, dtype=dtype)
 
-    s_in = d ** -0.5
     ls = shapes["layers"]
-    layers = {
-        "attn_norm": ones(ls["attn_norm"]),
-        "wq": normal(ls["wq"], s_in),
-        "wk": normal(ls["wk"], s_in),
-        "wv": normal(ls["wv"], s_in),
-        "wo": normal(ls["wo"], (2 * n * d) ** -0.5),
-        "mlp_norm": ones(ls["mlp_norm"]),
-        "w_gate": normal(ls["w_gate"], s_in),
-        "w_up": normal(ls["w_up"], s_in),
-        "w_down": normal(ls["w_down"], (2 * n * ff) ** -0.5),
-    }
+    layers: Params = {}
+    for name, shape in ls.items():
+        if quantize_int8 and name in LLAMA_QUANT_KEYS:
+            layers[name] = empty_qtensor(shape, layer_contract_axis(name, ls), dev)
+        elif scales[name] == 0.0:
+            layers[name] = ones(shape)
+        else:
+            layers[name] = torch.empty(shape, device=dev, dtype=dtype)
+    for i in range(cfg.n_layers):
+        for name, shape in ls.items():
+            if scales[name] == 0.0:
+                continue
+            w = draw(shape[1:], scales[name])
+            if isinstance(layers[name], QTensor):
+                quantize_layer_(layers[name], i, w, layer_contract_axis(name, ls))
+            else:
+                layers[name][i] = w
     params: Params = {
-        "embed": normal(shapes["embed"], 1.0),
+        "embed": draw(shapes["embed"], 1.0),
         "layers": layers,
         "final_norm": ones(shapes["final_norm"]),
     }
     if not cfg.tie_embeddings:
-        params["lm_head"] = normal(shapes["lm_head"], d ** -0.5)
+        head = draw(shapes["lm_head"], scales["lm_head"])
+        params["lm_head"] = quantize(head, 0) if quantize_int8 else head
     return params
 
 
@@ -257,12 +286,13 @@ def _block(
     segment_ids: Optional[torch.Tensor],
     cache_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
     cache_len: int = 0,
+    token_mask: Optional[torch.Tensor] = None,
 ):
-    """One decoder block -> (x, (k, v) cache views if caching else None).
+    """One decoder block -> (x, (k, v) cache views if caching else None, the
+    MoE aux loss or None for a dense config).
 
     With a cache, this step's K/V are written into ck/cv [B, max_len, Hkv, hd]
     at cache_len in place, and the queries attend over the filled prefix."""
-    _dense_only(cfg)
     dt = x.dtype
     h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
     q = torch.einsum("bsd,dhk->bshk", h, as_weight(lp["wq"], dt))
@@ -289,11 +319,26 @@ def _block(
     o = torch.einsum("bshk,hkd->bsd", attn, as_weight(lp["wo"], dt))
     x = x + o
 
-    h = rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
+    down, aux = mlp(rms_norm(x, lp["mlp_norm"], cfg.norm_eps), lp, cfg, token_mask)
+    return x + down, new_kv, aux
+
+
+def mlp(h: torch.Tensor, lp: Params, cfg: ModelConfig,
+        token_mask: Optional[torch.Tensor] = None):
+    """The block's MLP over h [B, S, D] -> (out [B, S, D], the MoE aux loss
+    or None): SwiGLU, or the capacity-dispatch MoE over the B*S tokens
+    (ray_tpu/models/llama.py:259-272). token_mask [B, S], 1 = a real token
+    (MoE only): pads and inactive slots claim no expert capacity."""
+    dt = h.dtype
+    if cfg.n_experts > 0:
+        b, s, d = h.shape
+        y, aux = moe.moe_mlp(h.reshape(b * s, d), lp["router"], lp["w_gate"], lp["w_up"],
+                             lp["w_down"], cfg,
+                             mask=None if token_mask is None else token_mask.reshape(b * s))
+        return y.reshape(b, s, d), aux
     gate = torch.einsum("bsd,df->bsf", h, as_weight(lp["w_gate"], dt))
     up = torch.einsum("bsd,df->bsf", h, as_weight(lp["w_up"], dt))
-    down = torch.einsum("bsf,fd->bsd", F.silu(gate) * up, as_weight(lp["w_down"], dt))
-    return x + down, new_kv
+    return torch.einsum("bsf,fd->bsd", F.silu(gate) * up, as_weight(lp["w_down"], dt)), None
 
 
 def forward(
@@ -305,14 +350,14 @@ def forward(
     segment_ids: Optional[torch.Tensor] = None,
     cache: Optional[KVCache] = None,
     return_aux: bool = False,
+    token_mask: Optional[torch.Tensor] = None,  # [B, S] 1 = real; MoE capacity masking
 ):
     """tokens [B, S] -> (logits [B, S, vocab] f32, updated cache or None).
 
     The cache, when given, is updated in place (see KVCache). With
-    return_aux=True also returns the MoE load-balancing loss, a zero for the
-    dense configs the port runs. Without a cache each layer goes through
-    _maybe_remat."""
-    _dense_only(cfg)
+    return_aux=True also returns the MoE load-balancing loss summed over the
+    layers (a zero for dense configs). Without a cache each layer goes
+    through _maybe_remat."""
     if cfg.pipeline_stages > 1 and cache is None:
         raise NotImplementedError("pipeline_stages > 1: ROADMAP A6")
     b, s = tokens.shape
@@ -321,22 +366,28 @@ def forward(
         positions = (torch.arange(s, device=tokens.device) + start)[None, :].expand(b, s)
     x = _embed_lookup(params["embed"], tokens, cfg.activation_dtype)
     if cache is None:
-        layer = _maybe_remat(
-            lambda h, lp: _block(h, lp, cfg, positions, segment_ids)[0], cfg)
+        def body(h, lp):
+            h, _, aux = _block(h, lp, cfg, positions, segment_ids, token_mask=token_mask)
+            return h, aux
+
+        layer = _maybe_remat(body, cfg)
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device) if return_aux else None
     for i in range(cfg.n_layers):
         lp = layer_params(params, i)
         if cache is not None:
-            x, _ = _block(x, lp, cfg, positions, segment_ids,
-                          (cache.k[i], cache.v[i]), cache.length)
+            x, _, aux = _block(x, lp, cfg, positions, segment_ids,
+                               (cache.k[i], cache.v[i]), cache.length, token_mask)
         else:
-            x = layer(x, lp)
+            x, aux = layer(x, lp)
+        if return_aux and aux is not None:
+            aux_total = aux_total + aux
     new_cache = None
     if cache is not None:
         new_cache = KVCache(cache.k, cache.v, cache.length + s)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = torch.einsum("bsd,dv->bsv", x, lm_head(params, cfg)).float()
     if return_aux:
-        return logits, new_cache, torch.zeros((), dtype=torch.float32, device=x.device)
+        return logits, new_cache, aux_total
     return logits, new_cache
 
 

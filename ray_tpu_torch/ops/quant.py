@@ -137,8 +137,42 @@ def dequant_np(q: np.ndarray, scales: np.ndarray, block_elems: int, dtype):
 # Llama layer weights eligible for weight-only quantization, all stored with
 # d_in first after the stacked [L] axis (the embedding table and the norms
 # stay as they are: gathers and elementwise ops stream no per-token weight
-# bytes the way matmuls do).
+# bytes the way matmuls do). In a MoE layer (marked by its "router") the MLP
+# keys hold expert stacks [L, E, d_in, out], which contract over axis 2. The
+# router [L, d, E] stays in the float dtype: it is tiny, and routing is the
+# accuracy-critical part.
 LLAMA_QUANT_KEYS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
+EXPERT_KEYS = ("w_gate", "w_up", "w_down")
+
+
+def layer_contract_axis(name: str, layer_keys) -> int:
+    """Contraction axis of a stacked layer leaf: d_in after [L] (1), or
+    after [L, E] (2) for an expert stack. Rank cannot tell them apart: the
+    attention projections are rank 4 too (ray_tpu/ops/quant.py:158-163)."""
+    return 2 if "router" in layer_keys and name in EXPERT_KEYS else 1
+
+
+def scale_shape(shape, axis: int) -> tuple:
+    """The scales' shape of a weight of `shape` contracted over `axis`."""
+    return tuple(shape[:axis]) + (1,) + tuple(shape[axis + 1:])
+
+
+def empty_qtensor(shape, axis: int, device) -> QTensor:
+    """An uninitialised QTensor of `shape` whose scales keep `axis` as 1."""
+    return QTensor(torch.empty(shape, dtype=torch.int8, device=device),
+                   torch.empty(scale_shape(shape, axis), dtype=torch.float32, device=device))
+
+
+def quantize_layer_(dst: QTensor, i: int, w: torch.Tensor, axis: int) -> None:
+    """Quantize layer i of a stacked weight (w: that layer) into dst in
+    place, over the stacked leaf's contraction axis. An expert stack goes
+    one expert at a time (the same amax per output unit, so the same bits),
+    which holds one expert's f32 temporaries rather than the layer's."""
+    if axis == 2:
+        for e in range(w.shape[0]):
+            dst.q[i, e], dst.s[i, e] = quantize(w[e], 0)
+    else:
+        dst.q[i], dst.s[i] = quantize(w, 0)
 
 
 @torch.no_grad()
@@ -148,20 +182,22 @@ def quantize_llama_params(params: dict) -> dict:
     Layers are stacked on [L], so each layer is quantized on its own (per-layer
     scales, as the JAX package's vmap over the scanned axis gives) into one
     preallocated int8 tensor: the peak holds one layer's f32 temporaries, not
-    a second copy of the model. The dense port has no expert-stacked weights
-    (MoE is ROADMAP A3), so every contraction axis is d_in."""
+    a second copy of the model. Expert stacks quantize per (expert, output
+    unit) over d_in, with scales [L, E, 1, out]. A leaf that is already a
+    QTensor stays as it is."""
     out = dict(params)
     layers = dict(params["layers"])
     for name in LLAMA_QUANT_KEYS:
         w = layers[name]
-        q = torch.empty(w.shape, dtype=torch.int8, device=w.device)
-        s = torch.empty((w.shape[0], 1) + tuple(w.shape[2:]), dtype=torch.float32,
-                        device=w.device)
+        if isinstance(w, QTensor):
+            continue
+        axis = layer_contract_axis(name, layers)
+        dst = empty_qtensor(w.shape, axis, w.device)
         for i in range(w.shape[0]):
-            q[i], s[i] = quantize(w[i], 0)
-        layers[name] = QTensor(q, s)
+            quantize_layer_(dst, i, w[i], axis)
+        layers[name] = dst
     out["layers"] = layers
-    if "lm_head" in params:
+    if "lm_head" in params and not isinstance(params["lm_head"], QTensor):
         # the untied head [d_model, vocab] is often the largest single weight
         # a decode step reads; every head consumer goes through as_weight
         out["lm_head"] = quantize(params["lm_head"], 0)

@@ -202,9 +202,13 @@ def test_embed_lookup_clamps_ids_as_jax_gather_does():
                                        ("remat-dots", "A1b")])
 def test_branches_outside_the_slice_raise(what, item):
     tokens = torch.zeros((1, 4), dtype=torch.long)
-    if what == "moe":
-        with pytest.raises(NotImplementedError, match=item):
-            pt_llama.init(pt_config.get_config("moe-tiny"), device="cpu")
+    if what == "moe":  # A3b is ported: the MoE branch runs, its aux loss engaged
+        cfg = pt_config.get_config("moe-tiny")
+        loss, metrics = pt_llama.loss_fn(pt_llama.init(cfg, device="cpu"),
+                                         {"tokens": tokens}, cfg)
+        assert torch.isfinite(loss) and metrics["moe_aux_loss"].item() > 0.0
+        assert loss.item() == pytest.approx(
+            (metrics["ce_loss"] + metrics["moe_aux_loss"]).item(), abs=1e-6)
         return
     params = pt_llama.init(PT_CFG, device="cpu")
     if what == "remat-dots":  # A1b is ported: the branch runs and gives full's loss
