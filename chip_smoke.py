@@ -63,6 +63,20 @@ Phases, each fatal on failure (the script exits non-zero and prints no result):
      and spec_multi's propose_fn seam) single-window and fused m = 4;
      every request finishes with its tokens and every prefill launches B1a
      n_layers times;
+ 6b. P/D disaggregation and the serving surface on the same weights, shared
+     by every engine: a prefill engine (bench_serve's paged settings, no KV
+     state), a paged and a slot decode engine (32 slots each) and a colocated
+     paged engine; three greedy prompts (buckets 128, 512, 1024) of 32
+     tokens prefilled with prefill_only and decoded with
+     generate_from_prefill: ids identical to the colocated engine's in both
+     layouts, the installed KV bit-equal to the transfer, B1a n_layers times
+     per prefill_only and never on a decode engine; prefill_only ms, KV
+     bytes shipped against the untrimmed bucket, host-to-device and
+     device-to-host ms, TTFT against the colocated one, decode tok/s. Then
+     OpenAIRouter and PDRouter over an in-process handle stand-in (chat,
+     completions, streamed chat ending in [DONE], /models; texts equal the
+     engine's), check_health, metrics() with every key of the JAX engine's,
+     and build_llm_processor over 8 prompts against generate_sync;
   7. the training path: make_train_step(llama8b-geom2, make_optimizer(
      warmup_steps=2, total_steps=1000)) in bf16 with f32 parameters, with
      remat dots (bench.py's policy) and then full, on one seeded batch of
@@ -78,8 +92,9 @@ Phases, each fatal on failure (the script exits non-zero and prints no result):
   9. MoE serving: mixtral-8x7b at full width and depth (32 layers, 8
      experts, top-2) with LLMConfig(quantization="int8"), which starts it
      in int8 one layer at a time (its bf16 weights do not fit the card):
-     start seconds, weight bytes against bf16 and the peak (< 60 GiB); the
-     no-drop check (capacity factor 4.0: a 64-token prefill and 8 greedy
+     start seconds, weight bytes against bf16 and the peak (< 60 GiB); router
+     ties on the card pick the lower expert first (a uniform row takes
+     experts 0 and 1), as jax.lax.top_k does; the no-drop check (capacity factor 4.0: a 64-token prefill and 8 greedy
      decode steps against llama.forward over the sequence, slot and paged,
      within 2e-2 of max|ref| with f32 activations; bf16 reported); 3 solo
      greedy requests (buckets 128 / 512 / 1024) and 4 concurrent ones;
@@ -1404,6 +1419,327 @@ def spec_path(torch, fa, card, params):
     return out
 
 
+# the P/D and serving-surface phase (6b): llama3-8b's bf16 weights shared by
+# a prefill engine, two decode engines and a colocated one
+PD_BUCKETS = (121, 501, 960)  # prompt tokens: buckets 128, 512 and 1024
+PD_GEN = 32  # greedy tokens per P/D request
+PD_SLOT = dict(max_num_seqs=32, max_model_len=1024,
+               prefill_buckets=PAGED["prefill_buckets"])  # the paged step's GEMM widths
+SURFACE_GEN = 8  # tokens per router and batch request
+# the JAX engine's metrics() keys (ray_tpu/llm/engine.py:851-881), paged ones last
+JAX_METRICS_KEYS = ("num_pending", "num_active", "total_generated", "num_preemptions",
+                    "num_aborted", "num_spec_drafted", "num_spec_accepted",
+                    "num_prefix_skipped", "pd_exports_live", "decode_fused_steps",
+                    "decode_host_sync_fraction", "decode_host_rt_ms", "decode_device_step_ms")
+JAX_PAGED_METRICS_KEYS = ("kv_blocks_total", "kv_blocks_free", "kv_pool_occupancy",
+                          "prefix_cache_hit_tokens", "prefix_cached_blocks")
+
+
+class _Response:
+    """A deployment response stand-in: the call already ran; result() gives
+    its value or raises its error."""
+
+    def __init__(self, fn):
+        try:
+            self._value, self._error = fn(), None
+        except Exception as e:  # raised at result(), as a response would
+            self._value, self._error = None, e
+
+    def result(self, timeout_s=None):
+        if self._error is not None:
+            raise self._error
+        return self._value
+
+
+class _Handle:
+    """A deployment handle stand-in over an in-process server:
+    .options(method_name=, stream=).remote(...) calls the method; a stream
+    gives its generator, anything else a response with .result()."""
+
+    def __init__(self, target, method="__call__", stream=False):
+        self.target, self.method, self.stream = target, method, stream
+
+    def options(self, method_name=None, stream=False):
+        return _Handle(self.target, method_name or self.method, stream)
+
+    def remote(self, *args, **kwargs):
+        fn = getattr(self.target, self.method)
+        if self.stream:
+            return fn(*args, **kwargs)
+        return _Response(lambda: fn(*args, **kwargs))
+
+
+class _ListDataset:
+    """A dataset stand-in over a list of row dicts: map, and map_batches over
+    dict-of-array batches (a class is built once from fn_constructor_args
+    and kept in `stages`)."""
+
+    def __init__(self, rows, stages=None):
+        self.rows, self.stages = rows, stages if stages is not None else []
+
+    def map(self, fn):
+        return _ListDataset([fn(dict(r)) for r in self.rows], self.stages)
+
+    def map_batches(self, fn, batch_size=16, fn_constructor_args=(), concurrency=1):
+        import numpy as np
+
+        if isinstance(fn, type):
+            fn = fn(*fn_constructor_args)
+            self.stages.append(fn)
+        rows = []
+        for i in range(0, len(self.rows), batch_size):
+            chunk = self.rows[i:i + batch_size]
+            batch = {}
+            for key in chunk[0]:
+                col = np.empty(len(chunk), dtype=object)
+                for j, r in enumerate(chunk):
+                    col[j] = r[key]
+                batch[key] = col
+            out = fn(batch)
+            rows += [{k: v[j] for k, v in out.items()} for j in range(len(chunk))]
+        return _ListDataset(rows, self.stages)
+
+
+def timed_stream(stream, t0):
+    """Drain a RequestOutput stream -> (ids, first-token ms from t0, decode
+    tokens/s over the tokens after the first, last output)."""
+    ids, stamps, out = [], [], None
+    for out in stream:
+        stamps.append(time.perf_counter())
+        ids.extend(out.token_ids)
+    tps = (len(ids) - 1) / (stamps[-1] - stamps[0]) if len(stamps) > 1 else None
+    return ids, (stamps[0] - t0) * 1e3, tps, out
+
+
+def installed_kv(torch, eng, n):
+    """(k, v) rows 0..n-1 that an engine holds for the request it served last
+    in slot 0 (its blocks through the table in the paged layout)."""
+    st = eng.state
+    if eng.config.kv_layout == "paged":
+        bs = eng.config.kv_block_size
+        ids = st.block_tables[0, :-(-n // bs)]
+        take = lambda pool: pool[:, ids].reshape(pool.shape[0], -1, *pool.shape[3:])[:, :n]
+        return take(st.k), take(st.v)
+    return st.k[:, 0, :n], st.v[:, 0, :n]
+
+
+def copy_ms(torch, k, v):
+    """Host-to-device and device-to-host ms of a transfer's k and v."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    kd, vd = k.cuda(), v.cuda()
+    torch.cuda.synchronize()
+    h2d = (time.perf_counter() - t) * 1e3
+    t = time.perf_counter()
+    kd.cpu(), vd.cpu()
+    d2h = (time.perf_counter() - t) * 1e3
+    return h2d, d2h
+
+
+def pd_engines_check(torch, fa, card, params):
+    """P/D disaggregation on the host path and the serving surface, on the
+    slot phase's llama3-8b weights shared by every engine: a paged prefill
+    engine (bench_serve's settings; weights only), a paged decode engine
+    (the same settings), a slot decode engine of 32 slots, and a colocated
+    paged engine. Three greedy prompts (buckets 128, 512, 1024) of PD_GEN
+    tokens each: P/D-paged, P/D-slot and colocated ids identical, the
+    installed KV bit-equal to prefill_only's, B1a n_layers times per
+    prefill_only and never on a decode engine. Then OpenAIRouter and
+    PDRouter over in-process handles (chat, completions, streamed chat,
+    /models; texts equal the engine's), check_health and the metrics keys.
+    Every engine is shut down at the end."""
+    from ray_tpu_torch.llm import (LLMConfig, LLMServer, OpenAIRouter, PDRouter,
+                                   SamplingParams, TorchLLMEngine)
+    from ray_tpu_torch.llm.server import render_chat_template
+
+    pcfg = LLMConfig(model_id="llama3-8b", model_source="llama3-8b", **PAGED)
+    scfg = LLMConfig(model_id="llama3-8b", model_source="llama3-8b", **PD_SLOT)
+    prefill = TorchLLMEngine(pcfg, params=params)
+    dec_paged = TorchLLMEngine(pcfg, params=params)
+    dec_slot = TorchLLMEngine(scfg, params=params)
+    colo = TorchLLMEngine(pcfg, params=params)
+    engines = (prefill, dec_paged, dec_slot, colo)
+    for eng in engines:
+        eng.start()
+    for eng in engines[1:]:  # KV state and loop up before any timed request
+        eng._ensure_decode_started()
+    if any(eng.params["embed"] is not params["embed"] for eng in engines):
+        raise SystemExit("the P/D engines do not share one copy of the weights")
+    n_layers = prefill.model_config.n_layers
+    sampling = SamplingParams(max_tokens=PD_GEN, temperature=0.0, stop_token_ids=[-1])
+    gen = torch.Generator().manual_seed(31)
+    # one untimed request through each path first: TTFT is then compared warm
+    warm_ids, warm = random_ids(torch, gen, 40), SamplingParams(max_tokens=4, temperature=0.0)
+    colo.generate_sync(warm_ids, warm)
+    for dec in (dec_paged, dec_slot):
+        list(dec.generate_from_prefill(prefill.prefill_only(warm_ids, warm), warm))
+    runs = []
+    for n in PD_BUCKETS:
+        ids = random_ids(torch, gen, n)
+        bucket = next(b for b in pcfg.buckets() if b >= n)
+        r = dict(prompt_tokens=n, bucket=bucket)
+        t0 = time.perf_counter()
+        (want, r["colo_ttft_ms"], r["colo_tok_s"], _), r["colo_launches"], _ = counted(
+            torch, fa, colo, lambda: timed_stream(colo.generate(ids, sampling), t0))
+        for name, dec in (("paged", dec_paged), ("slot", dec_slot)):
+            t0 = time.perf_counter()
+            pre, launches, _ = counted(torch, fa, prefill,
+                                       lambda: prefill.prefill_only(ids, sampling))
+            prefill_ms = (time.perf_counter() - t0) * 1e3
+            (got, ttft, tps, last), dec_launches, _ = counted(
+                torch, fa, dec, lambda: timed_stream(dec.generate_from_prefill(pre, sampling),
+                                                     t0))
+            k_in, v_in = installed_kv(torch, dec, n)
+            row_bytes = 2 * pre["k"][:, :, :1].nbytes  # k and v of one position
+            kv_equal = (torch.equal(k_in, pre["k"][:, 0, :n].cuda())
+                        and torch.equal(v_in, pre["v"][:, 0, :n].cuda()))
+            h2d, d2h = copy_ms(torch, pre["k"], pre["v"])
+            r[name] = dict(ids_equal=got == want, kv_equal=kv_equal, prefill_ms=prefill_ms,
+                           prefill_launches=launches, decode_launches=dec_launches,
+                           ttft_ms=ttft, decode_tok_s=tps, tokens=len(got),
+                           kv_bytes=pre["k"].nbytes + pre["v"].nbytes,
+                           kv_bytes_untrimmed=row_bytes * bucket, h2d_ms=h2d, d2h_ms=d2h,
+                           finish_reason=last.finish_reason, first_token=pre["first_token"])
+            del pre
+        runs.append(r)
+        for name in ("paged", "slot"):
+            x = r[name]
+            print(f"  P/D {name}, prompt {n} tokens (bucket {bucket}): prefill_only "
+                  f"{x['prefill_ms']:.2f} ms ({x['prefill_launches']} B1a launches), KV "
+                  f"{x['kv_bytes']} bytes shipped against {x['kv_bytes_untrimmed']} untrimmed, "
+                  f"h2d {x['h2d_ms']:.2f} ms, d2h {x['d2h_ms']:.2f} ms; TTFT {x['ttft_ms']:.2f} "
+                  f"ms against colocated {r['colo_ttft_ms']:.2f} ms; decode "
+                  f"{x['decode_tok_s']:.2f} tok/s (colocated {r['colo_tok_s']:.2f}), "
+                  f"{x['decode_launches']} B1a launches on the decode engine; ids equal "
+                  f"{x['ids_equal']}, installed KV bit-equal {x['kv_equal']} [{card}]",
+                  flush=True)
+    bad = [(r["prompt_tokens"], name) for r in runs for name in ("paged", "slot")
+           if not (r[name]["ids_equal"] and r[name]["kv_equal"]
+                   and r[name]["prefill_launches"] == n_layers
+                   and r[name]["decode_launches"] == 0 and r[name]["tokens"] == PD_GEN)]
+    if bad or any(r["colo_launches"] != n_layers for r in runs):
+        raise SystemExit(f"P/D disagrees with the colocated engine (ids, KV or B1a launches): "
+                         f"{bad}, colocated launches {[r['colo_launches'] for r in runs]}")
+    if dec_paged.num_prefills or dec_slot.num_prefills:
+        raise SystemExit("a decode engine computed a prefill")
+
+    # ---- the serving surface over in-process handles ----
+    servers = dict(prefill=LLMServer(pcfg, engine=prefill),
+                   colo=LLMServer(pcfg, engine=colo))
+    servers["decode"] = LLMServer(pcfg, engine=dec_paged,
+                                  prefill_handle=_Handle(servers["prefill"]))
+    routers = dict(openai=OpenAIRouter(**{"llama3-8b": _Handle(servers["colo"])}),
+                   pd=PDRouter(_Handle(servers["prefill"]), _Handle(servers["decode"]),
+                               "llama3-8b"))
+    body = dict(max_tokens=SURFACE_GEN, temperature=0.0, model="llama3-8b")
+    messages = [{"role": "user", "content": prompt_text(200)}]
+    text_prompt = prompt_text(300)
+    greedy = SamplingParams(max_tokens=SURFACE_GEN, temperature=0.0)
+    direct = dict(chat=colo.generate_sync(render_chat_template(messages), greedy),
+                  completions=colo.generate_sync(text_prompt, greedy))
+    surface = {}
+    for name, router in routers.items():
+        chat = router.chat(dict(body, messages=messages))
+        comp = router.completions(dict(body, prompt=text_prompt))
+        frames = list(router.handle_http({"path": "/v1/chat/completions",
+                                          "body": dict(body, messages=messages, stream=True)}))
+        streamed = "".join(json.loads(f[len("data: "):])["choices"][0]["delta"].get(
+            "content", "") for f in frames[:-1])
+        models = router.handle_http({"path": "/v1/models"})
+        ok = (chat["choices"][0]["message"]["content"] == direct["chat"].text
+              and chat["usage"]["completion_tokens"] == len(direct["chat"].token_ids)
+              and comp["choices"][0]["text"] == direct["completions"].text
+              and comp["usage"]["completion_tokens"] == len(direct["completions"].token_ids)
+              and frames[-1] == "data: [DONE]\n\n" and streamed == direct["chat"].text
+              and [m["id"] for m in models["data"]] == ["llama3-8b"])
+        surface[name] = dict(ok=ok, frames=len(frames), chat_tokens=chat["usage"][
+            "completion_tokens"], completion_tokens=comp["usage"]["completion_tokens"])
+        print(f"  {type(router).__name__}: chat, completions, streamed chat ({len(frames)} "
+              f"frames, ending in [DONE]) and /models equal the engine's: {ok}", flush=True)
+    keys_ok = {}
+    for name, srv in servers.items():
+        srv.check_health()
+        # the pool's keys once it exists (a prefill-only engine has none)
+        want_keys = set(JAX_METRICS_KEYS) | (
+            set(JAX_PAGED_METRICS_KEYS) if srv.engine._blocks is not None else set())
+        keys_ok[name] = set(srv.metrics()) == want_keys
+    m = servers["decode"].metrics()
+    print(f"  check_health passes on every server; metrics() keys equal the JAX engine's "
+          f"{keys_ok}; decode engine: fused steps {m['decode_fused_steps']}, host sync "
+          f"fraction {m['decode_host_sync_fraction']}, host rt {m['decode_host_rt_ms']} ms, "
+          f"device step {m['decode_device_step_ms']} ms [{card}]", flush=True)
+    if not all(s["ok"] for s in surface.values()) or not all(keys_ok.values()):
+        raise SystemExit(f"the serving surface disagrees: {surface}, metrics keys {keys_ok}")
+    if set(dec_slot.metrics()) != set(JAX_METRICS_KEYS):
+        raise SystemExit("the slot engine's metrics() keys are not the JAX engine's")
+
+    for eng in engines:
+        eng.shutdown()
+    return dict(runs=runs, surface=surface, metrics_keys=keys_ok, decode_metrics=m,
+                launches=sum(r[name]["prefill_launches"] for r in runs
+                             for name in ("paged", "slot")))
+
+
+def batch_check(torch, card, params):
+    """build_llm_processor over a list-backed dataset of 8 chat prompts
+    against generate_sync on `params`: its engine draws the seeded weights
+    itself (seed 0, as phase 3's server did)."""
+    from ray_tpu_torch.llm import (LLMConfig, SamplingParams, TorchLLMEngine,
+                                   build_llm_processor)
+    from ray_tpu_torch.llm.server import render_chat_template
+
+    bcfg = LLMConfig(model_id="llama3-8b", model_source="llama3-8b")
+    topics = [prompt_text(40 + 37 * i) for i in range(8)]
+    bsampling = {"max_tokens": SURFACE_GEN, "temperature": 0.0}
+    dataset = _ListDataset([{"topic": t} for t in topics])
+    processor = build_llm_processor(
+        bcfg, sampling_params=bsampling, batch_size=8, has_messages=True,
+        preprocess=lambda r: dict(r, messages=[{"role": "user", "content": r["topic"]}]))
+    t0 = time.perf_counter()
+    rows = processor(dataset).rows
+    batch_s = time.perf_counter() - t0
+    for stage in dataset.stages:
+        stage.engine.shutdown()
+    ref = TorchLLMEngine(bcfg, params=params)
+    want, _ = run_together(lambda i: ref.generate_sync(
+        render_chat_template([{"role": "user", "content": topics[i]}]),
+        SamplingParams(**bsampling)), len(topics))
+    ref.shutdown()
+    batch_ok = ([r["generated_text"] for r in rows] == [w.text for w in want]
+                and [int(r["num_generated_tokens"]) for r in rows]
+                == [len(w.token_ids) for w in want])
+    print(f"  build_llm_processor over 8 prompts in {batch_s:.2f} s: texts and token counts "
+          f"equal generate_sync's {batch_ok} [{card}]", flush=True)
+    if not batch_ok:
+        raise SystemExit("the batch processor disagrees with generate_sync")
+    return dict(ok=batch_ok, wall_s=batch_s)
+
+
+def pd_path(torch, fa, card, params):
+    """Phase 6b: pd_engines_check, then batch_check; each frees its engines
+    as it returns, and the phase must leave no more than 1 GiB allocated
+    (phase 9 needs < 2 GiB)."""
+    import gc
+
+    held0 = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    out = pd_engines_check(torch, fa, card, params)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["batch"] = batch_check(torch, card, params)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["wall_s"] = time.perf_counter() - t0
+    left = torch.cuda.memory_allocated() - held0
+    print(f"  phase 6b took {out['wall_s']:.1f} s and left {left / 2**30:.3f} GiB allocated",
+          flush=True)
+    if left > 2**30:
+        raise SystemExit(f"the P/D phase left {left / 2**30:.2f} GiB allocated")
+    return out
+
+
+
+
 # the MoE phase: mixtral-8x7b with int8 weights on one card (its bf16
 # weights, 93.4 GB, do not fit the card's 80 GB)
 MOE = dict(model_source="mixtral-8x7b", quantization="int8", max_num_seqs=8, max_model_len=1024)
@@ -1510,6 +1846,25 @@ def moe_layer_breakdown(torch, params, mcfg, tokens):
                 dispatch_ms=dispatch, rest_ms=whole - dequant - gemm - dispatch)
 
 
+def moe_tie_check(torch, mcfg):
+    """Router ties on the card pick the lower expert first, as jax.lax.top_k
+    does: a row of equal probabilities takes experts 0 and 1, and a row with
+    three equal maxima its first two."""
+    from ray_tpu_torch.models import moe
+
+    e = mcfg.n_experts
+    probs = torch.full((2, e), 1.0 / e, device="cuda")
+    probs[1] = 0.5 / (e - 3)
+    probs[1, [1, 3, 5]] = 0.5 / 3
+    _, idx = moe.top_k(probs, mcfg.moe_top_k)
+    got, want = idx.tolist(), [[0, 1], [1, 3]]
+    print(f"  router ties on the card: experts {got} (want {want}, jax.lax.top_k's order)",
+          flush=True)
+    if got != want:
+        raise SystemExit("router ties do not pick the lower expert first")
+    return got
+
+
 def moe_path(torch, fa, card):
     """mixtral-8x7b at full width and depth (32 layers, 8 experts, top-2,
     d 4096, d_ff 14336, GQA 32/8) with int8 weights on one card: the engine
@@ -1550,7 +1905,7 @@ def moe_path(torch, fa, card):
     if start_peak >= MOE_START_PEAK_GIB:
         raise SystemExit("the int8 start held more than the int8 model and one layer")
     out = dict(start_s=start_s, start_peak_gib=start_peak, weight_bytes_int8=int8_bytes,
-               weight_bytes_bf16=bf16_bytes, tol=PAGED_TOL)
+               weight_bytes_bf16=bf16_bytes, tol=PAGED_TOL, ties=moe_tie_check(torch, mcfg))
 
     # ---- the no-drop check: f32 activations gated, bf16 reported ----
     for dtype in ("float32", "bfloat16"):
@@ -1783,6 +2138,10 @@ def main() -> int:
           flush=True)
     quant_served = quant_path(torch, fa, card, params, served)
     spec_served = spec_path(torch, fa, card, params)
+
+    print("[6b] P/D disaggregation and the serving surface: llama3-8b on the same weights",
+          flush=True)
+    pd_served = pd_path(torch, fa, card, params)
     del params
     torch.cuda.empty_cache()
 
@@ -1832,6 +2191,7 @@ def main() -> int:
     kernels[0]["launches_spec"] = sum(r["launches"] for layout in ("slot", "paged")
                                       for r in spec_served[layout].values())
     kernels[0]["launches_moe"] = moe_served["launches"]
+    kernels[0]["launches_pd"] = pd_served["launches"]
     kernels[0]["design"] = (
         "bf16: a producer warpgroup keeps a 3-stage TMA ring of 128-row K/V tiles "
         "(mbarrier full/empty); two consumer warpgroups of 64 q rows run S = QK^T and "
@@ -1856,7 +2216,7 @@ def main() -> int:
                   build_s=build_s, sass=sass, checks=checks, backward_checks=bwd_checks,
                   timings=timings, training_timings=train_timings, sdpa_backward=sdpa_bwd,
                   served=served, numerics=numerics, paged=paged_served,
-                  int8=quant_served, spec=spec_served,
+                  int8=quant_served, spec=spec_served, pd=pd_served,
                   trained=trained_runs, train_numerics=train_check, moe=moe_served,
                   kernels=kernels,
                   total_s=total_s)

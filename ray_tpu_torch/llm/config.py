@@ -109,6 +109,10 @@ class LLMConfig:
     expert_parallel_size: int = 1
     pipeline_parallel_size: int = 1
     tokenizer: str = "byte"  # "byte" | "hf:<name-or-path>"
+    accelerator_type: Optional[str] = None
+    # the serve builders' replica options: num_replicas, max_ongoing_requests,
+    # ray_actor_options (llm/server.py build_openai_app)
+    deployment_config: Dict[str, Any] = dataclasses.field(default_factory=dict)
     engine_kwargs: Dict[str, Any] = dataclasses.field(default_factory=dict)  # ModelConfig overrides
 
     def __post_init__(self):

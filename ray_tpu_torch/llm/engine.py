@@ -26,8 +26,14 @@ the seeded init quantizes each layer as it is drawn, so a model whose float
 copy would not fit the card (mixtral-8x7b) starts in int8. Mixture-of-experts
 configs run in both layouts, with speculation and int8.
 
-P/D disaggregation (ROADMAP A2e), pipeline parallelism (A6) and telemetry
-(A11) are later slices.
+P/D disaggregation: ``prefill_only`` on a prefill engine (weights only, no
+KV state) returns the prompt's KV as CPU tensors with the first sampled
+token; ``generate_from_prefill`` on a decode engine installs that KV at
+admission, in the loop thread, and decodes from it. The KV travels on the
+host path, as the JAX engine's does when its device plane is down; the
+device-plane handoff (``kv_handle`` results, paged streaming) is ROADMAP A10.
+``metrics()`` has every key of the JAX engine's; its Prometheus export and
+the request spans are ROADMAP A11, as is pipeline parallelism's A6.
 """
 from __future__ import annotations
 
@@ -91,7 +97,8 @@ def _pow2_floor(n: int) -> int:
 
 
 class _Request:
-    def __init__(self, req_id: str, prompt_ids: List[int], params: SamplingParams):
+    def __init__(self, req_id: str, prompt_ids: List[int], params: SamplingParams,
+                 prefill_kv=None):
         self.id = req_id
         self.prompt_ids = prompt_ids
         self.params = params
@@ -103,6 +110,8 @@ class _Request:
         self.token_history: List[int] = list(prompt_ids)
         self.admitted_at = 0  # admission order; preemption takes the youngest
         self.prefill_tokens = 0  # tokens the last admission's prefill computed
+        # (k, v, first_token) of a P/D transfer, installed at admission
+        self.prefill_kv = prefill_kv
 
 
 class TorchLLMEngine(LLMEngine):
@@ -144,12 +153,19 @@ class TorchLLMEngine(LLMEngine):
         self._step_s = 0.0  # EWMA of per-decode-step device time
         self._prefill_per_tok_s = 0.0  # EWMA of prefill time per computed token
         self._k_seen: set = set()  # burst widths already run (first is warm-up)
-        self.num_prefills = 0
+        self._last_tick_monotonic = time.monotonic()  # loop liveness (check_health)
+        self.num_prefills = 0  # prefills this engine computed (not P/D installs)
+        self.num_pending = 0
+        self.num_active = 0
         self.total_generated = 0
         self.num_preemptions = 0
+        self.num_aborted = 0
         self.num_prefix_skipped = 0
         self.num_spec_drafted = 0
         self.num_spec_accepted = 0
+        # KV exports this engine pins for a decode engine's pull: the host
+        # path pins nothing, so it stays empty (the device plane is ROADMAP A10)
+        self._pd_exports: List[bytes] = []
 
     # -- lifecycle ---------------------------------------------------------------
     def start(self) -> None:
@@ -263,6 +279,15 @@ class TorchLLMEngine(LLMEngine):
         est = max((wall_s - self._host_rt_s) / k, 1e-6)
         self._step_s = est if self._step_s <= 0 else 0.5 * est + 0.5 * self._step_s
 
+    def decode_host_sync_fraction(self) -> float:
+        """Estimated share of decode wall time spent on the host round trip
+        at the current burst width (the quantity auto-K minimizes)."""
+        rt, step = self._host_rt_s, self._step_s
+        if rt <= 0 or step <= 0:
+            return 0.0
+        k = self.decode_steps_target()
+        return rt / (rt + k * step)
+
     def _slot_steps_left(self, req: _Request) -> int:
         """Decode steps this request can still take: its max_tokens budget
         capped by the KV room left in its slot (both >= 1 while it is live)."""
@@ -306,16 +331,77 @@ class TorchLLMEngine(LLMEngine):
         self.start()
         self._ensure_decode_started()
         prompt_ids = self._encode_prompt(prompt, params)
-        req = _Request(request_id or uuid.uuid4().hex, prompt_ids, params)
+        yield from self._submit(_Request(request_id or uuid.uuid4().hex, prompt_ids, params))
+
+    def _submit(self, req: _Request) -> Iterator[RequestOutput]:
+        """Queue `req` now -> the stream of its outputs, to the finished one."""
         with self._lock:
+            self.num_pending += 1
             self._requests[req.id] = req
         self._waiting.put(req)
         self._wakeup.set()
-        while True:
-            out = req.out_queue.get()
-            yield out
-            if out.finished:
-                return
+
+        def stream() -> Iterator[RequestOutput]:
+            while True:
+                out = req.out_queue.get()
+                yield out
+                if out.finished:
+                    return
+
+        return stream()
+
+    # -- P/D disaggregation, host path (ray_tpu/llm/engine.py:555-792) -------------
+    def prefill_only(self, prompt, params: SamplingParams,
+                     force_host: bool = False) -> Dict[str, Any]:
+        """Prefill a prompt and return its KV with the first sampled token,
+        for generate_from_prefill on a decode engine. The engine holds its
+        weights and nothing else: no decode state is allocated. The KV is
+        chunk-aware (prefill_chunk) and, with kv_layout="paged", trimmed to
+        the blocks the decode side installs; it leaves as CPU tensors in
+        the engine's dtype, which pickle. -> {"prompt_ids", "first_token",
+        "k", "v"} and "first_text" when the first token renders alone (not a
+        stop token, not a partial UTF-8 codepoint). Every result takes the
+        host path, so `force_host` changes nothing here."""
+        self.start()
+        prompt_ids = self._encode_prompt(prompt, params)
+        k, v, last_logits = self._prefill_kv_tensors(prompt_ids)
+        tok = self._sample_one(last_logits, params)
+        with self._lock:
+            self.num_prefills += 1
+        out: Dict[str, Any] = {"prompt_ids": prompt_ids, "first_token": tok}
+        stops = params.stop_token_ids or [self.tokenizer.eos_token_id]
+        if tok not in stops:
+            txt = self.tokenizer.decode([tok])
+            if txt and not txt.endswith("\ufffd"):
+                out["first_text"] = txt
+        if self.config.kv_layout == "paged":
+            k, v = paged.trim_kv_for_transfer(k, v, len(prompt_ids), self.config.kv_block_size)
+        # compact host copies: a trimmed view would pickle its whole storage
+        out["k"], out["v"] = k.cpu().contiguous(), v.cpu().contiguous()
+        return out
+
+    def release_prefill_export(self, key_hex: str) -> None:
+        """Decode-side ack of a pulled export: the host path pins nothing,
+        so the key leaves the (empty) export list and nothing is released."""
+        key = bytes.fromhex(key_hex)
+        with self._lock:
+            self._pd_exports[:] = [e for e in self._pd_exports if e != key]
+
+    def generate_from_prefill(self, prefill_result: Dict[str, Any], params: SamplingParams,
+                              request_id: Optional[str] = None) -> Iterator[RequestOutput]:
+        """Continue decoding from a transferred prefill (prefill_only's
+        result; k and v as tensors or f32 numpy arrays). The KV is copied to
+        the device and installed at admission, in the loop thread, and the
+        first token the prefill side sampled is emitted first. Raises at the
+        call, not at the first next(), for a device-plane handle."""
+        if "kv_handle" in prefill_result:
+            raise NotImplementedError("device-plane KV handoff: ROADMAP A10")
+        self.start()
+        self._ensure_decode_started()
+        return self._submit(_Request(
+            request_id or uuid.uuid4().hex, list(prefill_result["prompt_ids"]), params,
+            prefill_kv=(prefill_result["k"], prefill_result["v"],
+                        int(prefill_result["first_token"]))))
 
     def generate_sync(self, prompt, params: SamplingParams) -> RequestOutput:
         """Collect the full generation into one RequestOutput."""
@@ -330,14 +416,27 @@ class TorchLLMEngine(LLMEngine):
             num_prompt_tokens=last.num_prompt_tokens, num_generated_tokens=len(ids))
 
     def metrics(self) -> Dict[str, Any]:
-        """The paged-KV and speculation counters of the JAX engine's
-        metrics(): preemptions, skipped prefix hits, drafted and accepted
-        speculative tokens and, with kv_layout="paged", the pool's occupancy
-        and the prefix cache's hits."""
-        out: Dict[str, Any] = {"num_preemptions": self.num_preemptions,
-                               "num_prefix_skipped": self.num_prefix_skipped,
-                               "num_spec_drafted": self.num_spec_drafted,
-                               "num_spec_accepted": self.num_spec_accepted}
+        """The JAX engine's metrics() keys: request counts, preemptions,
+        aborts, speculation and prefix-gate counters, pinned P/D exports,
+        the fused burst width and where decode wall time goes and, with
+        kv_layout="paged", the pool's occupancy and the prefix cache's
+        hits. (The JAX engine also exports them as Prometheus gauges:
+        ROADMAP A11.)"""
+        out: Dict[str, Any] = {
+            "num_pending": self.num_pending,
+            "num_active": self.num_active,
+            "total_generated": self.total_generated,
+            "num_preemptions": self.num_preemptions,
+            "num_aborted": self.num_aborted,
+            "num_spec_drafted": self.num_spec_drafted,
+            "num_spec_accepted": self.num_spec_accepted,
+            "num_prefix_skipped": self.num_prefix_skipped,
+            "pd_exports_live": len(self._pd_exports),
+            "decode_fused_steps": self.decode_steps_target(),
+            "decode_host_sync_fraction": round(self.decode_host_sync_fraction(), 4),
+            "decode_host_rt_ms": round(self._host_rt_s * 1e3, 4),
+            "decode_device_step_ms": round(self._step_s * 1e3, 4),
+        }
         blocks = self._blocks
         if blocks is not None:
             total, free = blocks.total_blocks, blocks.num_free
@@ -368,6 +467,7 @@ class TorchLLMEngine(LLMEngine):
         req.out_queue.put(RequestOutput(
             request_id=req.id, token_ids=[], finished=True, finish_reason="abort",
             num_prompt_tokens=len(req.prompt_ids), num_generated_tokens=req.generated))
+        self.num_aborted += 1
         self._release(req)
         with self._lock:
             self._aborted.discard(req.id)
@@ -386,14 +486,16 @@ class TorchLLMEngine(LLMEngine):
             request_id=req.id, token_ids=[], finished=True, finish_reason=reason,
             num_prompt_tokens=len(req.prompt_ids), num_generated_tokens=req.generated))
         with self._lock:
+            self.num_pending -= 1
             self._requests.pop(req.id, None)
             self._aborted.discard(req.id)
 
     def _admit(self) -> None:
-        """Prefill waiting requests into free slots (the JAX engine's
-        ``_admit_inner``): into blocks (paged), chunk by chunk into a slot, or
-        whole into a slot. A paged request the pool cannot take yet goes back
-        to the queue, and admission stops for this cycle."""
+        """Admit waiting requests into free slots (the JAX engine's
+        ``_admit_inner``): a P/D transfer's KV is installed as it is; else
+        the prompt is prefilled into blocks (paged), chunk by chunk into a
+        slot, or whole into a slot. A paged request the pool cannot take yet
+        goes back to the queue, and admission stops for this cycle."""
         cfg, c = self.model_config, self.config
         for slot in [s for s, r in self._active.items() if r is None]:
             try:
@@ -404,6 +506,7 @@ class TorchLLMEngine(LLMEngine):
                 was_aborted = req.id in self._aborted
                 self._aborted.discard(req.id)
             if was_aborted:
+                self.num_aborted += 1
                 self._fail_request(req, "abort")
                 continue
             # visible to the loop's crash handler: in neither _waiting nor _active
@@ -411,7 +514,15 @@ class TorchLLMEngine(LLMEngine):
             p = req.params
             t0 = time.perf_counter()
             req.prefill_tokens = len(req.prompt_ids)
-            if c.kv_layout == "paged":
+            transferred = req.prefill_kv is not None
+            if transferred:
+                tok = self._install_transfer(req, slot)
+                if tok is None:
+                    self._admitting = None
+                    if c.kv_layout == "paged":
+                        return  # requeued (pool busy) or failed: stop admitting
+                    continue  # failed: wider than the slot
+            elif c.kv_layout == "paged":
                 tok = self._prefill_paged(req, slot)
                 if tok is None:
                     self._admitting = None
@@ -429,15 +540,54 @@ class TorchLLMEngine(LLMEngine):
                     self.params, self.state, tokens, len(req.prompt_ids), slot, cfg)
                 tok = self._sample_one(last_logits, p)
             self._note_prefill(req, time.perf_counter() - t0)
-            self.num_prefills += 1
+            if not transferred:
+                self.num_prefills += 1
             req.slot = slot
             req.admitted_at = next(self._admissions)
             self._active[slot] = req
             self._temp[slot], self._top_p[slot], self._top_k[slot] = (
                 p.temperature, p.top_p, p.top_k)
             self._last_tokens[slot] = tok
+            with self._lock:
+                self.num_pending -= 1
+                self.num_active += 1
             self._admitting = None
             self._emit(req, tok)
+
+    def _install_transfer(self, req: _Request, slot: int) -> Optional[int]:
+        """Install a P/D transfer's KV (ray_tpu/llm/engine.py:1115-1142) and
+        return the first token the prefill side sampled, or None when the
+        request was not admitted: requeued with its KV (paged pool busy) or
+        failed with "length" (wider than a slot can hold). The host-to-device
+        copy happens here, in the loop thread."""
+        c = self.config
+        k, v, tok = req.prefill_kv
+        n = len(req.prompt_ids)
+        if c.kv_layout == "paged":
+            needed = self._blocks.blocks_needed(max(n + 1, k.shape[2]))
+            if needed > self._blocks.max_fit(slot):
+                self._fail_request(req, "length")  # can never fit
+                return None
+            if not self._blocks.can_allocate(needed):
+                self._waiting.put(req)  # prefill_kv intact; retried next cycle
+                return None
+            self._install_paged(slot, self._to_device(k), self._to_device(v), n, needed)
+        elif k.shape[2] > c.max_model_len:
+            # a transfer padded past this engine's slot width fails only
+            # this request (install_kv would raise in the loop)
+            self._fail_request(req, "length")
+            return None
+        else:
+            self.state = model_runner.install_kv(self.state, self._to_device(k),
+                                                 self._to_device(v), n, slot)
+        req.prefill_kv = None
+        return tok
+
+    def _to_device(self, x) -> torch.Tensor:
+        """A transferred KV array (a tensor, or an f32 numpy array) on this
+        engine's device."""
+        t = x if isinstance(x, torch.Tensor) else torch.tensor(np.asarray(x))
+        return t.to(self.device)
 
     def _note_prefill(self, req: _Request, wall_s: float) -> None:
         """Fold one admission's prefill wall time into the per-computed-token
@@ -611,6 +761,9 @@ class TorchLLMEngine(LLMEngine):
         self._blocks.release(req.slot)
         self._active[req.slot] = None
         req.slot = -1
+        with self._lock:
+            self.num_active -= 1
+            self.num_pending += 1
         self._waiting.put(req)
 
     def _sample_one(self, last_logits: torch.Tensor, p: SamplingParams) -> int:
@@ -649,6 +802,7 @@ class TorchLLMEngine(LLMEngine):
             self._active[req.slot] = None
             req.slot = -1
             with self._lock:
+                self.num_active -= 1
                 self._requests.pop(req.id, None)
                 self._aborted.discard(req.id)
 
@@ -894,6 +1048,9 @@ class TorchLLMEngine(LLMEngine):
     def _loop(self) -> None:
         while not self._shutdown:
             try:
+                # liveness for LLMServer.check_health: a wedged device call
+                # shows as a stale tick while requests wait
+                self._last_tick_monotonic = time.monotonic()
                 self._admit()
                 self._process_aborts()
                 if any(r is not None for r in self._active.values()):
@@ -908,6 +1065,7 @@ class TorchLLMEngine(LLMEngine):
                         request_id=self._admitting.id, token_ids=[], finished=True,
                         finish_reason="error"))
                     with self._lock:
+                        self.num_pending -= 1  # it left _waiting, never admitted
                         self._requests.pop(self._admitting.id, None)
                         self._aborted.discard(self._admitting.id)
                     self._admitting = None

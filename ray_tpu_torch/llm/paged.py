@@ -244,6 +244,19 @@ def append_block(state: PagedState, slot: int, index: int, block_id: int) -> Pag
     return state
 
 
+def trim_kv_for_transfer(k: torch.Tensor, v: torch.Tensor, n_tokens: int, block_size: int):
+    """Trim bucket-padded prefill KV [L, 1, S_pad, ...] before a P/D handoff
+    to the smallest power-of-two block count covering n_tokens + 1 (views,
+    no copy). The pad tail is masked garbage that the decode side pads again
+    at install; power-of-two block counts keep the install shapes few, as
+    the prefill buckets do."""
+    blocks = max(1, -(-(n_tokens + 1) // block_size))
+    s = (1 << (blocks - 1).bit_length()) * block_size
+    if s >= k.shape[2]:
+        return k, v
+    return k[:, :, :s], v[:, :, :s]
+
+
 # ----------------------------------------------------------------- prefix cache
 
 @torch.no_grad()

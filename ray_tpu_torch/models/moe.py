@@ -52,6 +52,14 @@ def _group_size(t: int) -> int:
     return t
 
 
+def top_k(probs: torch.Tensor, k: int):
+    """The k largest probabilities of each row and their experts, descending,
+    the lower index first among equal values, as jax.lax.top_k orders them
+    (torch.topk promises no order for ties, and a bf16 router meets ties)."""
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
 def _moe_group(x, mask, router_w, w_gate, w_up, w_down, cfg: ModelConfig):
     """Dispatch one token group. x [g, D]; mask [g] f32, 1 = real token; the
     weights in x's dtype."""
@@ -62,7 +70,7 @@ def _moe_group(x, mask, router_w, w_gate, w_up, w_down, cfg: ModelConfig):
 
     logits = torch.einsum("td,de->te", x, router_w).float()
     probs = torch.softmax(logits, dim=-1)  # [g, E]
-    gate_vals, gate_idx = torch.topk(probs, k, dim=-1, sorted=True)  # [g, k], descending
+    gate_vals, gate_idx = top_k(probs, k)  # [g, k], descending
     if k > 1 or cfg.moe_top1_renorm:
         gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True).clamp_min(1e-9)
 

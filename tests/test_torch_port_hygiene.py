@@ -1,5 +1,6 @@
 """The port stands alone: ray_tpu_torch imports neither JAX nor ray_tpu, runs
 on CUDA unless asked for the CPU, and builds its kernels or raises."""
+import ast
 import os
 import re
 import subprocess
@@ -54,9 +55,60 @@ def test_no_jax_or_ray_tpu_import_in_the_sources():
     assert len(files) > 15 and not hits, hits
 
 
+def _imported_modules(tree):
+    """(module, line, inside a function) for every import in a syntax tree:
+    import and from-import statements at any depth, and importlib or
+    __import__ calls with a literal name."""
+    found = []
+
+    def visit(node, in_func):
+        if isinstance(node, ast.Import):
+            found.extend((a.name, node.lineno, in_func) for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and not node.level:
+            found.append((node.module, node.lineno, in_func))
+        elif isinstance(node, ast.Call):
+            f = node.func
+            name = f.attr if isinstance(f, ast.Attribute) else getattr(f, "id", "")
+            if (name in ("import_module", "__import__") and node.args
+                    and isinstance(node.args[0], ast.Constant)):
+                found.append((str(node.args[0].value), node.lineno, in_func))
+        nested = in_func or isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef,
+                                              ast.Lambda))
+        for child in ast.iter_child_nodes(node):
+            visit(child, nested)
+
+    visit(tree, False)
+    return found
+
+
+def test_no_import_of_jax_or_ray_tpu_at_any_depth():
+    """The syntax tree of every source, functions included: a lazy import
+    inside a builder or a method is an import all the same."""
+    files = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, names in os.walk(PKG):
+        files += [os.path.join(root, n) for n in names if n.endswith(".py")]
+    hits, in_functions = [], 0
+    for path in files:
+        with open(path, encoding="utf-8") as f:
+            tree = ast.parse(f.read(), path)
+        for module, line, in_func in _imported_modules(tree):
+            in_functions += in_func
+            if module.split(".")[0] in ("jax", "ray_tpu", "jaxlib"):
+                hits.append(f"{path}:{line}: {module}")
+    assert not hits, hits
+    assert in_functions > 20  # the walk reached the imports inside functions
+
+
+def test_the_import_walk_sees_lazy_imports():
+    tree = ast.parse("def build(serve=None):\n    from ray_tpu import serve\n"
+                     "    import importlib\n    importlib.import_module('jax.numpy')\n")
+    assert [(m, f) for m, _, f in _imported_modules(tree)] == [
+        ("ray_tpu", True), ("importlib", True), ("jax.numpy", True)]
+
+
 def _entry_point(name):
     from ray_tpu_torch.device import resolve_device
-    from ray_tpu_torch.llm import LLMConfig, LLMServer, TorchLLMEngine
+    from ray_tpu_torch.llm import LLMConfig, LLMEngineStage, LLMServer, TorchLLMEngine
     from ray_tpu_torch.llm import model_runner, paged
     from ray_tpu_torch.models import config, llama
 
@@ -69,6 +121,7 @@ def _entry_point(name):
             "TorchLLMEngine-int8": lambda: TorchLLMEngine(LLMConfig(quantization="int8")),
             "TorchLLMEngine-spec": lambda: TorchLLMEngine(LLMConfig(num_speculative_tokens=2)),
             "LLMServer": lambda: LLMServer(LLMConfig()),
+            "LLMEngineStage": lambda: LLMEngineStage(LLMConfig()),
             "LLMServer-spec-paged": lambda: LLMServer(LLMConfig(
                 kv_layout="paged", speculative={"num_tokens": 4}, quantization="int8")),
             "llama.init": lambda: llama.init(tiny),
@@ -80,6 +133,7 @@ def _entry_point(name):
 
 @pytest.mark.parametrize("name", ["resolve_device", "TorchLLMEngine", "TorchLLMEngine-int8",
                                   "TorchLLMEngine-spec", "LLMServer", "LLMServer-spec-paged",
+                                  "LLMEngineStage",
                                   "llama.init", "init_state", "init_paged_state",
                                   "train.init_state",
                                   "make_train_step"])

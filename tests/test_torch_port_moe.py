@@ -57,6 +57,18 @@ MLP_CASES = {
 }
 
 
+TIE_TOKENS = 16  # ROADMAP C2's input 1: router column 3 equal to column 0
+
+
+def _tied_inputs(router):
+    """16 seeded tokens and the router with column 3 a copy of column 0: each
+    token's probabilities for experts 0 and 3 are equal."""
+    x = np.random.default_rng(16).standard_normal((TIE_TOKENS, CFG.d_model)).astype(np.float32)
+    router = np.array(router, copy=True)
+    router[:, 3] = router[:, 0]
+    return x, router
+
+
 def _mlp_inputs(name):
     over, t, masked, _ = MLP_CASES[name]
     x = np.random.default_rng(len(name)).standard_normal((t, CFG.d_model)).astype(np.float32)
@@ -164,6 +176,10 @@ def jax_out(jax_params):
             with mock.patch.object(jax_moe, "_moe_group_size", lambda g=group: g or 4096):
                 out[f"mlp_{name}"] = jax_moe.moe_mlp(x, lp["router"], lp["w_gate"], lp["w_up"],
                                                      lp["w_down"], cfg, mask=mask)
+        x, _ = _tied_inputs(np.zeros((CFG.d_model, CFG.n_experts), np.float32))
+        tied = lp["router"].at[:, 3].set(lp["router"][:, 0])
+        out["mlp_tied"] = jax_moe.moe_mlp(jnp.asarray(x), tied, lp["w_gate"], lp["w_up"],
+                                          lp["w_down"], CFG)
         tokens = jnp.asarray(_tokens(0, 2, 12))
         out["forward"] = jax_llama.forward(p, tokens, CFG, return_aux=True)[::2]
         cache = jax_llama.init_kv_cache(CFG, batch=2, max_len=16)
@@ -214,6 +230,34 @@ def test_moe_mlp_matches_jax(jax_out, pt_params, name, monkeypatch):
         assert pt_moe.expert_capacity(dataclasses.replace(PT_CFG, **over), 64) == 4
     if name == "masked":  # a masked token gets nothing from the experts
         np.testing.assert_array_equal(y.numpy()[mask == 0], 0.0)
+
+
+def test_tied_experts_route_as_jax_does(jax_out, pt_params):
+    """ROADMAP C2: with router column 3 equal to column 0 every token ties
+    experts 0 and 3; the port picks the lower index first, as
+    jax.lax.top_k does, and agrees with JAX's moe_mlp to 1e-5 of max|y|."""
+    lp = pt_llama.layer_params(pt_params, 0)
+    x, router = _tied_inputs(lp["router"].numpy())
+    y, aux = pt_moe.moe_mlp(torch.from_numpy(x), torch.from_numpy(router), lp["w_gate"],
+                            lp["w_up"], lp["w_down"], PT_CFG)
+    want_y, want_aux = jax_out["mlp_tied"]
+    assert np.abs(y.numpy() - want_y).max() <= TOL * np.abs(want_y).max()
+    np.testing.assert_allclose(aux.item(), want_aux, rtol=TOL, atol=TOL)
+
+
+@pytest.mark.parametrize("n_experts", [4, 8])
+def test_top_k_takes_the_lower_index_first_among_ties(n_experts):
+    """A row of equal probabilities picks experts 0 and 1; rows with planted
+    ties pick what jax.lax.top_k picks, values and indices."""
+    uniform = torch.full((1, n_experts), 1.0 / n_experts)
+    vals, idx = pt_moe.top_k(uniform, 2)
+    assert idx.tolist() == [[0, 1]] and vals.tolist() == uniform[:, :2].tolist()
+    rng = np.random.default_rng(n_experts)
+    probs = rng.integers(0, 4, (64, n_experts)).astype(np.float32) / 4  # many ties
+    want_vals, want_idx = jax.lax.top_k(jnp.asarray(probs), 2)
+    vals, idx = pt_moe.top_k(torch.from_numpy(probs), 2)
+    assert idx.tolist() == np.asarray(want_idx).tolist()
+    assert vals.tolist() == np.asarray(want_vals).tolist()
 
 
 def test_capacity_and_group_size_follow_jax():
