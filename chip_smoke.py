@@ -105,12 +105,38 @@ Phases, each fatal on failure (the script exits non-zero and prints no result):
      prompt, a cold and a warm one sharing a 512-token prefix, a chunked
      one). Every request finishes with its tokens; B1a launches n_layers
      times per whole prefill and never for a suffix or a chunk;
+  A. after 6b, on the same weights: llama3-8b written as HF's release lays it
+     out (bf16 tensors in 4 shards model-0000N-of-00004.safetensors, an index
+     and config.json, ~16 GB) under a temporary directory (under build/ when
+     the temp directory lacks twice the room), loaded back with
+     load_llama_params (bit-equal), and served from the directory by
+     LLMServer(LLMConfig(model_source=dir)): the engine's weights bit-equal,
+     phase 3's three solo greedy prompts give phase 3's ids, B1a n_layers
+     times per prefill; write, load and start seconds, GB/s, the start's
+     peak. The directory is removed;
+  B. after 9, MoE training (A3c): mixtral-8x7b's geometry at 2 layers (d 4096,
+     8 experts of d_ff 14336, top-2, 3.16B parameters) in f32 at B1 S256,
+     its gradients through B1a/B1b/B1c against the plain path (remat full
+     and dots, 1e-3 of max|ref| per leaf); then trained with
+     make_train_step at B6 S2048, remat dots (the batch is cut, never a
+     width, if it does not fit): step ms, tokens/s, MFU on active
+     parameters, peak, the loss falling, launch counts, and one step by
+     kind with the dispatch / combine einsums' and the expert GEMMs' shares;
+     then save_llama_params (f32, ~12.7 GB), load_llama_params in f32 and
+     init_state(checkpoint_dir=...) bit-equal to the trained parameters, a
+     warm-started step's loss equal to one from the trained parameters with
+     a fresh optimizer state, and LLMServer(LLMConfig(model_source=dir,
+     quantization="int8")): int8 leaves and scales bit-equal to
+     quantize_llama_params of the bf16 load, the start's peak below int8 +
+     one bf16 layer slice + 1 GiB, three greedy requests and a chat served.
+     Each of A and B prints its wall time and the GiB held when it starts;
  10. a JSON line of the kernels, the card's name and power limit, and last the
      line {"ok": true, "device": {...}}.
 With ``--json PATH`` a copy of every number is written to PATH as JSON.
 """
 import dataclasses
 import json
+import math
 import os
 import re
 import statistics
@@ -141,6 +167,7 @@ TRAIN_LOSS_TOL = 1e-5  # relative
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 SOLO_REPEATS = 3  # solo requests per TTFT bucket
+SOLO_CHARS = (120, 500, 1000)  # solo prompts of phase 3 (and A): buckets 128, 512, 1024
 TRAIN_SHAPE = dict(b=6, s=2048, h=32, hkv=8, d=128)  # llama8b-geom2's attention at B6 S2048
 TRAIN_STEPS = 8  # timed steps after one warm-up step
 # bench_serve.py's engine settings for the paged phase
@@ -525,14 +552,15 @@ def main_path(torch, fa, card):
     # host time on a shared machine moves these numbers between calls, so each
     # bucket runs SOLO_REPEATS times in turn and the spread is reported
     for _ in range(SOLO_REPEATS):
-        for n_chars in (120, 500, 1000):  # prompt buckets 128, 512, 1024
+        for n_chars in SOLO_CHARS:
             ids = eng.tokenizer.encode(prompt(n_chars))
             t = time.perf_counter()
-            stamps, n_tokens = [], 0
+            stamps, got = [], []
             for out in eng.generate(ids, SamplingParams(max_tokens=64, temperature=0.0,
                                                         stop_token_ids=[-1])):
                 stamps.append(time.perf_counter())
-                n_tokens += len(out.token_ids)
+                got += out.token_ids
+            n_tokens = len(got)
             if n_tokens != 64 or out.finish_reason != "length":
                 raise SystemExit(f"solo request ended with {n_tokens} tokens "
                                  f"({out.finish_reason})")
@@ -540,7 +568,8 @@ def main_path(torch, fa, card):
             tps = (len(stamps) - 1) / (stamps[-1] - stamps[0])
             # the engine keeps the prompt's tail that leaves room for max_tokens
             solo.append(dict(prompt_tokens=out.num_prompt_tokens, ttft_ms=ttft_ms,
-                             decode_tok_s=tps, tokens=n_tokens))
+                             decode_tok_s=tps, tokens=n_tokens, n_chars=n_chars,
+                             token_ids=got))
     torch.cuda.synchronize()
     launches = fa.launch_count()
     prefills = eng.num_prefills - prefills0
@@ -759,16 +788,16 @@ def train_path(torch, fa, card, policy):
                 n_params=cfg.n_params, profile=profile)
 
 
-def train_numerics(torch, fa):
-    """llama8b-geom2 in f32 at B1 S256: loss_fn's value and every parameter's
-    gradient through the kernels (attention on the auto path, which takes
-    flash on the card), with remat full and with dots (selective
-    checkpointing around the flash Function), against attention_impl=
-    "reference" with remat full."""
+def train_numerics(torch, fa, cfg=None):
+    """A 2-layer model at full width in f32 at B1 S256 (llama8b-geom2 unless
+    cfg is given): loss_fn's value and every parameter's gradient through the
+    kernels (attention on the auto path, which takes flash on the card), with
+    remat full and with dots (selective checkpointing around the flash
+    Function), against attention_impl="reference" with remat full."""
     from ray_tpu_torch.models import llama
     from ray_tpu_torch.models.config import get_config
 
-    cfg = get_config("llama8b-geom2", dtype="float32")
+    cfg = dataclasses.replace(cfg or get_config("llama8b-geom2"), dtype="float32")
     params = llama.init(cfg, seed=3, device="cuda", dtype=torch.float32)
     leaves = llama.tree_leaves(params)
     for p in leaves:
@@ -800,7 +829,8 @@ def train_numerics(torch, fa):
             errs.append((g - r).abs().max().item() / max(ref_max, 1e-30))
         err_loss = abs(loss_k - loss_r) / abs(loss_r)
         finite = all(bool(torch.isfinite(g).all()) for g in grads_k)
-        print(f"  llama8b-geom2, f32, B1 S256, remat {policy} through the kernels: loss "
+        print(f"  {cfg.name} geometry at {cfg.n_layers} layers, f32, B1 S256, remat {policy} "
+              f"through the kernels: loss "
               f"{loss_k:.7f} vs {loss_r:.7f} (rel {err_loss:.2e}, tol {TRAIN_LOSS_TOL}); "
               f"worst gradient max|d| / max|ref| {max(errs):.2e} over {len(errs)} leaves "
               f"(tol {TRAIN_GRAD_TOL}); launches {launches}", flush=True)
@@ -1054,6 +1084,35 @@ def tree_bytes(params):
     for val in params.values():
         for t in (val.values() if isinstance(val, dict) else [val]):
             total += t.nbytes if isinstance(t, QTensor) else t.nelement() * t.element_size()
+    return total
+
+
+def release_layout(torch, params, cfg, out_dir, shards=4):
+    """Write `params` as HF's Llama-3 release lays them out: bf16 tensors in
+    `shards` files model-0000N-of-0000M.safetensors (consecutive tensors in
+    HF's order, cut at about equal bytes), model.safetensors.index.json and
+    config.json, with the port's writer. Returns the tensor bytes written."""
+    from ray_tpu_torch.models import checkpoint
+    from ray_tpu_torch.models.safetensors import save_file
+
+    tensors = checkpoint.hf_state_dict(params, cfg)
+    total = sum(t.nelement() * 2 for t in tensors.values())
+    groups, done = [[]], 0
+    for name, t in tensors.items():
+        if groups[-1] and len(groups) < shards and done >= len(groups) * total / shards:
+            groups.append([])
+        groups[-1].append(name)
+        done += t.nelement() * 2
+    weight_map = {}
+    for n, names in enumerate(groups, start=1):
+        fname = f"model-{n:05d}-of-{len(groups):05d}.safetensors"
+        save_file({k: tensors[k] for k in names}, os.path.join(out_dir, fname),
+                  metadata={"format": "pt"}, dtypes={k: torch.bfloat16 for k in names})
+        weight_map.update({k: fname for k in names})
+    with open(os.path.join(out_dir, "model.safetensors.index.json"), "w") as f:
+        json.dump({"metadata": {"total_size": total}, "weight_map": weight_map}, f, indent=2)
+    with open(os.path.join(out_dir, "config.json"), "w") as f:
+        json.dump(checkpoint.config_to_hf(cfg), f, indent=2)
     return total
 
 
@@ -1878,7 +1937,6 @@ def moe_path(torch, fa, card):
     and never for a suffix or a chunk; every request finishes with its
     tokens."""
     from ray_tpu_torch.llm import LLMConfig, SamplingParams, TorchLLMEngine
-    from ray_tpu_torch.models import llama
 
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -1894,10 +1952,7 @@ def moe_path(torch, fa, card):
     start_s = time.perf_counter() - t0
     start_peak = torch.cuda.max_memory_allocated() / 2**30
     int8_bytes = tree_bytes(eng.params)
-    bf16_bytes = 2 * sum(
-        int(torch.Size(shape).numel())
-        for val in llama.param_shapes(mcfg).values()
-        for shape in (val.values() if isinstance(val, dict) else [val]))
+    bf16_bytes = 2 * param_count(torch, mcfg)
     print(f"  {mcfg.name} started in int8 in {start_s:.2f} s (seeded init, each layer "
           f"quantized as drawn): weights {int8_bytes / 1e9:.3f} GB int8 against "
           f"{bf16_bytes / 1e9:.3f} GB bf16 ({int8_bytes / bf16_bytes:.3f}); peak during start "
@@ -2017,6 +2072,432 @@ def moe_path(torch, fa, card):
     out.update(paged=paged_runs, launches=launches)
     del params, eng
     torch.cuda.empty_cache()
+    return out
+
+
+# the checkpoint phases (A, B): each writes a directory, reads it back and
+# removes it
+MOE_TRAIN_BATCHES = (6, 4, 3, 2, 1)  # B at S2048: the first that fits the card trains
+MOE_TRAIN_STEPS = 4  # timed steps after one warm-up step
+MOE_TRAIN_GEN = 16  # tokens per request served from the trained checkpoint
+CKPT_START_SLACK = 2**30  # an int8 start may hold 1 GiB beyond int8 + one layer slice
+
+
+def checkpoint_dir(nbytes):
+    """A fresh directory with room for 2 x nbytes: under the temp directory,
+    else under build/ in the checkout; exits when neither has the room."""
+    import shutil
+    import tempfile
+
+    roots = (tempfile.gettempdir(), os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                                 "build"))
+    for root in roots:
+        os.makedirs(root, exist_ok=True)
+        free = shutil.disk_usage(root).free
+        print(f"  {root}: {free / 1e9:.1f} GB free, {2 * nbytes / 1e9:.1f} GB wanted",
+              flush=True)
+        if free >= 2 * nbytes:
+            return tempfile.mkdtemp(prefix="ckpt-", dir=root)
+    raise SystemExit(f"no room for a checkpoint of {nbytes / 1e9:.1f} GB under {roots}")
+
+
+def same_weights(torch, a, b):
+    """Two parameter dicts with the same leaves, bit for bit (an int8
+    QTensor by its q and s), in the same dtypes."""
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.ops.quant import QTensor
+
+    if set(a) != set(b) or set(a["layers"]) != set(b["layers"]):
+        return False
+    for x, y in zip(llama.tree_leaves(a), llama.tree_leaves(b)):
+        xs, ys = (list(x) if isinstance(x, QTensor) else [x],
+                  list(y) if isinstance(y, QTensor) else [y])
+        if len(xs) != len(ys) or any(u.dtype != v.dtype or u.shape != v.shape
+                                     or not torch.equal(u, v) for u, v in zip(xs, ys)):
+            return False
+    return True
+
+
+def checkpoint_serve_path(torch, fa, card, params, served):
+    """Phase A: phase 3's llama3-8b weights written as HF's release lays them
+    out (bf16, 4 shards and an index, config.json), loaded back, and served
+    from the directory by LLMServer: the loaded and the engine's weights
+    bit-equal to phase 3's, the greedy ids of phase 3's solo prompts
+    identical, B1a n_layers times per prefill."""
+    import shutil
+
+    from ray_tpu_torch.llm import LLMConfig, LLMServer, SamplingParams
+    from ray_tpu_torch.models import checkpoint
+    from ray_tpu_torch.models.config import get_config
+
+    cfg = get_config("llama3-8b")
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    nbytes = tree_bytes(params)
+    print(f"  phase A starts holding {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+          f"(phase 3's weights, {nbytes / 1e9:.2f} GB)", flush=True)
+    root = checkpoint_dir(nbytes)
+    try:
+        t0 = time.perf_counter()
+        written = release_layout(torch, params, cfg, root)
+        write_s = time.perf_counter() - t0
+        files = sorted(f for f in os.listdir(root) if f.endswith(".safetensors"))
+        file_bytes = sum(os.path.getsize(os.path.join(root, f)) for f in files)
+        print(f"  wrote {written / 1e9:.3f} GB of bf16 tensors as {files} ({file_bytes} bytes "
+              f"with headers) in {write_s:.2f} s = {written / write_s / 1e9:.2f} GB/s (to the "
+              f"page cache, not synced) [{card}]", flush=True)
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loaded = checkpoint.load_llama_params(root, device="cuda", dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        load_same = same_weights(torch, loaded, params)
+        del loaded
+        torch.cuda.empty_cache()
+        print(f"  load_llama_params: {written / 1e9:.3f} GB in {load_s:.2f} s = "
+              f"{written / load_s / 1e9:.2f} GB/s (files just written: from the page cache); "
+              f"bit-equal to phase 3's weights: {load_same} [{card}]", flush=True)
+        if not load_same:
+            raise SystemExit("the loaded llama3-8b weights differ from the ones written")
+
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        server = LLMServer(LLMConfig(model_source=root))
+        torch.cuda.synchronize()
+        start_s = time.perf_counter() - t0
+        start_peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+        eng = server.engine
+        engine_same = same_weights(torch, eng.params, params)
+        print(f"  LLMServer(model_source=<dir>) up in {start_s:.2f} s, peak during the start "
+              f"{start_peak:.2f} GiB against the weights' {nbytes / 2**30:.2f} GiB "
+              f"({nbytes / 1e9:.2f} GB); engine weights bit-equal to phase 3's: "
+              f"{engine_same} [{card}]", flush=True)
+        if not engine_same:
+            raise SystemExit("the engine's weights from the checkpoint differ from phase 3's")
+
+        want = {r["n_chars"]: r["token_ids"] for r in reversed(served["solo"])}
+        ids = {}
+        fa.reset_launch_count()
+        prefills0 = eng.num_prefills
+        # ---- served from the directory: counts zeroed just before, read just after ----
+        for n_chars in SOLO_CHARS:
+            out = eng.generate_sync(eng.tokenizer.encode(prompt_text(n_chars)), SamplingParams(
+                max_tokens=64, temperature=0.0, stop_token_ids=[-1]))
+            ids[n_chars] = out.token_ids
+        torch.cuda.synchronize()
+        launches, prefills = fa.launch_count(), eng.num_prefills - prefills0
+        # ---- end ----
+        repeats_agree = all(r["token_ids"] == want[r["n_chars"]] for r in served["solo"])
+        same_ids = all(ids[n] == want[n] for n in SOLO_CHARS)
+        print(f"  3 greedy prompts of {list(SOLO_CHARS)} chars x 64 tokens: ids identical to "
+              f"phase 3's: {same_ids} (phase 3's {SOLO_REPEATS} repeats agree: "
+              f"{repeats_agree}); flash launches {launches} over {prefills} prefills, n_layers "
+              f"{cfg.n_layers}", flush=True)
+        if not same_ids or prefills != len(SOLO_CHARS) or launches != cfg.n_layers * prefills:
+            raise SystemExit("serving from the checkpoint differs from phase 3")
+        server.shutdown()
+        del server, eng
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    wall = time.perf_counter() - t_phase
+    print(f"  phase A took {wall:.1f} s", flush=True)
+    return dict(bytes=written, file_bytes=file_bytes, files=files, write_s=write_s,
+                write_gb_s=written / write_s / 1e9, load_s=load_s,
+                load_gb_s=written / load_s / 1e9, start_s=start_s, start_peak_gib=start_peak,
+                weights_gib=nbytes / 2**30, launches=launches, prefills=prefills,
+                ids_identical=same_ids, phase3_repeats_agree=repeats_agree, wall_s=wall)
+
+
+def param_count(torch, cfg):
+    """Parameters of the model `cfg` describes, from its leaves' shapes."""
+    from ray_tpu_torch.models import llama
+
+    return sum(int(torch.Size(shape).numel())
+               for val in llama.param_shapes(cfg).values()
+               for shape in (val.values() if isinstance(val, dict) else [val]))
+
+
+def active_params(cfg):
+    """Parameters a token goes through (embedding and head counted, as
+    ModelConfig.n_params counts them): attention, norms, the router and
+    top_k of the n_experts expert MLPs."""
+    d = cfg.d_model
+    emb = cfg.vocab_size * d * (1 if cfg.tie_embeddings else 2)
+    attn = d * cfg.head_dim * (2 * cfg.n_heads + 2 * cfg.n_kv_heads)
+    mlp = cfg.moe_top_k * 3 * d * cfg.d_ff + d * cfg.n_experts
+    return emb + cfg.n_layers * (attn + mlp + 2 * d) + d
+
+
+def moe_step_profile(torch, cfg, step, state, batch):
+    """torch.profiler over one train step (shapes recorded): device ms by
+    kind, and the matrix products by part. A product with a dimension of
+    E*C (one group's expert slots) is a dispatch or combine einsum, forward
+    or backward; one batched over the E experts with C rows is an expert
+    GEMM. Device time is each aten::bmm / aten::mm op's, its kernels
+    included."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from ray_tpu_torch.models import moe
+
+    tokens = batch["tokens"].shape[0] * (batch["tokens"].shape[1] - 1)
+    g = moe._group_size(tokens)
+    c, e = moe.expert_capacity(cfg, g), cfg.n_experts
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        t0 = time.perf_counter()
+        step(state, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy, by_kind = 0.0, {}
+    for evt in prof.key_averages():
+        dev_us = evt.self_device_time_total
+        if dev_us > 0 and str(getattr(evt, "device_type", "")).endswith("CUDA"):
+            busy += dev_us / 1e3
+            kind = next((kind for kind, marks in KERNEL_KINDS
+                         if any(m in evt.key for m in marks)), "other")
+            by_kind[kind] = by_kind.get(kind, 0.0) + dev_us / 1e3
+    parts = {"dispatch_combine": 0.0, "expert_gemms": 0.0, "other_products": 0.0}
+    for evt in prof.key_averages(group_by_input_shape=True):
+        if evt.key not in ("aten::bmm", "aten::mm"):
+            continue
+        shapes = [list(s) for s in evt.input_shapes if s]
+        dims = [x for s in shapes for x in s]
+        if e * c in dims:
+            part = "dispatch_combine"
+        elif shapes and len(shapes[0]) == 3 and shapes[0][0] == e and c in dims:
+            part = "expert_gemms"
+        else:
+            part = "other_products"
+        parts[part] += evt.device_time_total / 1e3
+    return dict(wall_ms=wall * 1e3, device_busy_ms=busy, busy_share=busy / (wall * 1e3),
+                by_kind=by_kind, products_ms=parts, tokens=tokens, group=g, capacity=c,
+                shares={k: v / busy for k, v in parts.items()} if busy else None)
+
+
+def moe_train_path(torch, fa, card):
+    """Phase B (A3c): mixtral-8x7b's geometry at 2 layers trained on the card
+    with make_train_step at B6 S2048 with remat dots (the batch cut, never a
+    width, if it does not fit), after its f32 gradients through the kernels
+    against the plain path; then saved with save_llama_params, loaded back
+    in f32, warm-started with init_state(checkpoint_dir=...), and served in
+    int8 from the directory."""
+    import gc
+    import shutil
+
+    from ray_tpu_torch.llm import LLMConfig, LLMServer
+    from ray_tpu_torch.models import checkpoint, llama
+    from ray_tpu_torch.models.config import get_config
+    from ray_tpu_torch.ops.quant import quantize_llama_params
+    from ray_tpu_torch.train import TrainState, init_state, make_optimizer, make_train_step
+
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    print(f"  phase B starts holding {held / 2**30:.2f} GiB", flush=True)
+    if held > 2 * 2**30:
+        raise SystemExit(f"{held / 2**30:.2f} GiB still allocated before the MoE training phase")
+    # mixtral's widths at 2 of 32 layers: d 4096, 8 experts of d_ff 14336,
+    # top-2, capacity factor 1.25, vocab 32000; bf16 activations
+    cfg = dataclasses.replace(get_config("mixtral-8x7b"), n_layers=2, remat_policy="dots")
+    n_params = param_count(torch, cfg)
+    n_active = active_params(cfg)
+    out = dict(n_params=n_params, n_active=n_active)
+    print(f"  {cfg.name} at {cfg.n_layers} layers: {n_params / 1e9:.3f}B parameters "
+          f"({16 * n_params / 2**30:.1f} GiB of f32 parameters, gradients and Adam moments), "
+          f"{n_active / 1e9:.3f}B active per token", flush=True)
+
+    # ---- gradients through the kernels against the plain path, f32, B1 S256 ----
+    out["numerics"] = train_numerics(torch, fa, cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- training: the first batch of MOE_TRAIN_BATCHES that fits ----
+    tx = make_optimizer(warmup_steps=2, total_steps=1000)
+    step = make_train_step(cfg, tx)
+    s = TRAIN_SHAPE["s"]
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    tokens = torch.randint(0, cfg.vocab_size, (MOE_TRAIN_BATCHES[0], s + 1), generator=gen,
+                           device="cuda")
+    state = warm = None
+    for b in MOE_TRAIN_BATCHES:
+        try:
+            t0 = time.perf_counter()
+            state = init_state(cfg, tx, seed=0)
+            batch = {"tokens": tokens[:b]}
+            state, m = step(state, batch)  # warm-up: count 0, lr = 0
+            warm = dict(loss=m["loss"].item(), grad_norm=m["grad_norm"].item(),
+                        s=time.perf_counter() - t0)
+            break
+        except torch.cuda.OutOfMemoryError as e:
+            print(f"  B{b} S{s} does not fit the card ({str(e).splitlines()[0][:120]}): "
+                  "the batch is cut", flush=True)
+            state = m = None
+        gc.collect()
+        torch.cuda.empty_cache()
+    if warm is None:
+        raise SystemExit("no batch of the MoE training fits the card")
+    print(f"  B{b} S{s} ({b * s} tokens a step{'' if b == MOE_TRAIN_BATCHES[0] else ', cut from B6'}),"
+          f" remat dots, bf16 activations; warm-up step (lr 0, with init): loss "
+          f"{warm['loss']:.6f}, grad_norm {warm['grad_norm']:.6f}, {warm['s']:.2f} s", flush=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launch_count()
+    # ---- the MoE training path: counts zeroed just before, read just after ----
+    steps = []
+    for _ in range(MOE_TRAIN_STEPS):
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        steps.append(dict(loss=m["loss"].item(), ce_loss=m["ce_loss"].item(),
+                          moe_aux_loss=m["moe_aux_loss"].item(),
+                          grad_norm=m["grad_norm"].item(), step_s=time.perf_counter() - t0))
+    launches = {name: fa.launch_count(name) for name in fa.KERNELS}
+    # ---- end of the MoE training path ----
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    for i, r in enumerate(steps):
+        print(f"  step {i + 1}: loss {r['loss']:.6f} (ce {r['ce_loss']:.6f}, aux "
+              f"{r['moe_aux_loss']:.6f}), grad_norm {r['grad_norm']:.6f}, "
+              f"{r['step_s'] * 1e3:.2f} ms", flush=True)
+    step_s = statistics.median(r["step_s"] for r in steps)
+    tok_s = b * s / step_s
+    mfu = 6 * n_active * tok_s / PEAK_BF16_FLOPS
+    want = launches_per_step(cfg.n_layers)
+    print(f"  median step {step_s * 1e3:.2f} ms, {tok_s:.1f} tokens/s, 6*N_active*tokens/s "
+          f"over {PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s (MFU on active parameters) {mfu:.4f}; "
+          f"peak device memory {peak_gib:.2f} GiB; launches over {MOE_TRAIN_STEPS} steps "
+          f"{launches}, per step expected {want} [{card}]", flush=True)
+    if any(launches[k] != MOE_TRAIN_STEPS * n for k, n in want.items()):
+        raise SystemExit(f"launch counts {launches} != {MOE_TRAIN_STEPS} x {want}: the MoE "
+                         "training path did not run through the kernels as expected")
+    finite = all(math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"]) for r in steps)
+    if not finite or not steps[-1]["loss"] < steps[0]["loss"]:
+        raise SystemExit(f"MoE training did not run clean: losses {[r['loss'] for r in steps]}")
+    prof = moe_step_profile(torch, cfg, step, state, batch)
+    shares = prof["shares"] or {}
+    print(f"  one step profiled: wall {prof['wall_ms']:.2f} ms, device busy "
+          f"{prof['device_busy_ms']:.2f} ms ({100 * prof['busy_share']:.1f}%), by kind "
+          f"{ {k: round(v, 3) for k, v in prof['by_kind'].items()} }; T {prof['tokens']} in "
+          f"groups of {prof['group']}, C {prof['capacity']}: dispatch and combine einsums "
+          f"{prof['products_ms']['dispatch_combine']:.3f} ms "
+          f"({100 * shares.get('dispatch_combine', float('nan')):.1f}% of busy), expert GEMMs "
+          f"{prof['products_ms']['expert_gemms']:.3f} ms "
+          f"({100 * shares.get('expert_gemms', float('nan')):.1f}%), other products "
+          f"{prof['products_ms']['other_products']:.3f} ms [{card}]", flush=True)
+    out.update(batch=b, seq=s, warmup=warm, steps=steps, step_ms=step_s * 1e3,
+               tokens_per_s=tok_s, mfu_active=mfu, peak_gib=peak_gib, launches=launches,
+               profile=prof)
+
+    # ---- save, load, warm start ----
+    params = state.params
+    state = m = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    root = checkpoint_dir(4 * n_params)
+    try:
+        t0 = time.perf_counter()
+        checkpoint.save_llama_params(params, cfg, root)
+        save_s = time.perf_counter() - t0
+        file_bytes = os.path.getsize(os.path.join(root, "model.safetensors"))
+        t0 = time.perf_counter()
+        loaded = checkpoint.load_llama_params(root, device="cuda", dtype=torch.float32)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        load_same = same_weights(torch, loaded, params)
+        del loaded
+        torch.cuda.empty_cache()
+        print(f"  save_llama_params: {file_bytes / 1e9:.3f} GB (f32, one file) in {save_s:.2f} s "
+              f"= {file_bytes / save_s / 1e9:.2f} GB/s; load_llama_params in f32 in "
+              f"{load_s:.2f} s = {file_bytes / load_s / 1e9:.2f} GB/s; bit-equal to the trained "
+              f"parameters: {load_same} [{card}]", flush=True)
+        if not load_same:
+            raise SystemExit("the loaded MoE checkpoint differs from the trained parameters")
+
+        # One card holds two f32 copies of the parameters and one optimizer
+        # state, not two states: the step from the trained parameters with a
+        # fresh optimizer state goes first. Its update has lr 0 (the warm-up
+        # starts at 0), so the parameters keep their values, which the
+        # comparison with the warm start then checks.
+        one = {"tokens": tokens[:1]}
+        m = step(TrainState(0, params, tx.init(llama.tree_leaves(params))), one)[1]
+        loss_fresh = m["loss"].item()
+        m = None
+        gc.collect()
+        torch.cuda.empty_cache()
+        warm_state = init_state(cfg, tx, checkpoint_dir=root)
+        warm_same = same_weights(torch, warm_state.params, params) and all(
+            p.requires_grad for p in llama.tree_leaves(warm_state.params))
+        params = None
+        gc.collect()
+        torch.cuda.empty_cache()
+        loss_warm = step(warm_state, one)[1]["loss"].item()
+        warm_state = None
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"  init_state(checkpoint_dir=...): parameters bit-equal to the trained ones with "
+              f"requires_grad: {warm_same}; B1 S{s} step loss {loss_warm:.9f} against "
+              f"{loss_fresh:.9f} from the trained parameters with a fresh optimizer state "
+              f"[{card}]", flush=True)
+        if not warm_same or loss_warm != loss_fresh:
+            raise SystemExit("the warm start differs from the trained parameters")
+
+        # ---- served in int8 from the directory ----
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        server = LLMServer(LLMConfig(model_source=root, quantization="int8"))
+        torch.cuda.synchronize()
+        start_s = time.perf_counter() - t0
+        start_peak = torch.cuda.max_memory_allocated() - base
+        eng = server.engine
+        int8_bytes = tree_bytes(eng.params)
+        slice_bytes = max(2 * int(torch.Size(v[1:]).numel())
+                          for v in llama.param_shapes(eng.model_config)["layers"].values())
+        limit = int8_bytes + slice_bytes + CKPT_START_SLACK
+        want_q = quantize_llama_params(
+            checkpoint.load_llama_params(root, device="cuda", dtype=torch.bfloat16))
+        int8_same = same_weights(torch, eng.params, want_q)
+        del want_q
+        torch.cuda.empty_cache()
+        print(f"  LLMServer(model_source=<dir>, quantization='int8') up in {start_s:.2f} s: "
+              f"weights {int8_bytes / 1e9:.3f} GB, peak during the start "
+              f"{start_peak / 2**30:.3f} GiB (limit int8 + one bf16 layer slice "
+              f"{slice_bytes / 1e9:.3f} GB + 1 GiB = {limit / 2**30:.3f} GiB); int8 leaves and "
+              f"scales bit-equal to quantize_llama_params of the bf16 load: {int8_same} [{card}]",
+              flush=True)
+        if not int8_same or start_peak >= limit:
+            raise SystemExit("the int8 start from the checkpoint is not load-then-quantize "
+                             "within its peak")
+        reqs, n, prefills = counted(torch, fa, eng, lambda: [
+            solo_request(eng, eng.tokenizer.encode(prompt_text(c)), MOE_TRAIN_GEN)
+            for c in SOLO_CHARS])
+        chat = server.chat({"messages": [{"role": "user", "content": prompt_text(200)}],
+                            "max_tokens": MOE_TRAIN_GEN, "temperature": 0.0})
+        for r in reqs:
+            print(f"  int8 from the checkpoint, prompt {r['prompt_tokens']} tokens: TTFT "
+                  f"{r['ttft_ms']:.2f} ms, decode {r['decode_tok_s']:.2f} tok/s over "
+                  f"{r['tokens']} tokens [{card}]", flush=True)
+        print(f"  chat: {chat['usage']}, finish {chat['choices'][0]['finish_reason']}; flash "
+              f"launches {n} over {prefills} prefills", flush=True)
+        if prefills != len(SOLO_CHARS) or n != cfg.n_layers * prefills or \
+                chat["usage"]["completion_tokens"] < 1:
+            raise SystemExit("serving the trained MoE checkpoint in int8 failed")
+        server.shutdown()
+        del server, eng
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    wall = time.perf_counter() - t_phase
+    print(f"  phase B took {wall:.1f} s", flush=True)
+    out.update(save_s=save_s, file_bytes=file_bytes, load_s=load_s, loss_warm=loss_warm,
+               loss_fresh=loss_fresh, int8_start_s=start_s, int8_start_peak_gib=start_peak / 2**30,
+               int8_start_limit_gib=limit / 2**30, int8_bytes=int8_bytes, served=reqs,
+               launches_serving=n, wall_s=wall)
     return out
 
 
@@ -2142,6 +2623,10 @@ def main() -> int:
     print("[6b] P/D disaggregation and the serving surface: llama3-8b on the same weights",
           flush=True)
     pd_served = pd_path(torch, fa, card, params)
+
+    print("[A] a llama3-8b checkpoint in HF's release layout (bf16, 4 shards): written, "
+          "loaded and served", flush=True)
+    ckpt_served = checkpoint_serve_path(torch, fa, card, params, served)
     del params
     torch.cuda.empty_cache()
 
@@ -2159,6 +2644,10 @@ def main() -> int:
 
     print("[9] MoE serving: mixtral-8x7b, int8, one card", flush=True)
     moe_served = moe_path(torch, fa, card)
+
+    print("[B] MoE training: mixtral-8x7b's geometry at 2 layers trained on the card, saved, "
+          "loaded, warm-started and served in int8 from the directory", flush=True)
+    moe_trained = moe_train_path(torch, fa, card)
 
     sources = {"flash_fwd": ("ray_tpu_torch/ops/csrc/flash_fwd.cu",
                              "ray_tpu/ops/flash_attention.py:123"),
@@ -2218,6 +2707,7 @@ def main() -> int:
                   served=served, numerics=numerics, paged=paged_served,
                   int8=quant_served, spec=spec_served, pd=pd_served,
                   trained=trained_runs, train_numerics=train_check, moe=moe_served,
+                  checkpoint=ckpt_served, moe_trained=moe_trained,
                   kernels=kernels,
                   total_s=total_s)
     if json_path:

@@ -5,7 +5,8 @@ it does not serve yet: the slot and paged KV layouts (with the prefix cache)
 on one device, with whole-prompt or chunked prefill, n-gram speculative
 decoding and int8 weights (W8A16), for dense and mixture-of-experts models
 (``engine_kwargs`` overrides the model config, e.g. its
-``moe_capacity_factor``). The rest raises NotImplementedError naming
+``moe_capacity_factor``), from a registry name, a ModelConfig or a local
+HF-layout checkpoint directory (models/checkpoint.py). The rest raises NotImplementedError naming
 its ROADMAP item at construction. The JAX engine's checks of the paged,
 chunked, speculative and quantization settings (ray_tpu/llm/engine.py:283-307)
 run here, at construction, before any weight is built, with the same errors.
@@ -17,6 +18,7 @@ import dataclasses
 import os
 from typing import Any, Dict, List, Optional, Union
 
+from ray_tpu_torch.models import checkpoint
 from ray_tpu_torch.models.config import ModelConfig, get_config
 
 # the JAX package's knob defaults (ray_tpu/knobs.py), fixed for the port
@@ -73,8 +75,9 @@ class LLMConfig:
     """Model + engine settings for ``TorchLLMEngine`` / ``LLMServer``.
 
     ``model_id`` is the served-model name (OpenAI ``model`` field);
-    ``model_source`` is a registry name (e.g. "byte-tiny", "llama3-8b") or a
-    ModelConfig. Weights are stored in ``dtype`` once the engine starts.
+    ``model_source`` is a registry name (e.g. "byte-tiny", "llama3-8b"), a
+    ModelConfig, or a local checkpoint directory whose weights the engine
+    loads at start. Weights are stored in ``dtype`` once the engine starts.
     """
 
     model_id: str = "llama"
@@ -156,9 +159,23 @@ class LLMConfig:
     def resolve_model_config(self) -> ModelConfig:
         if isinstance(self.model_source, ModelConfig):
             return self.model_source
-        if os.path.isdir(str(self.model_source)):
-            raise NotImplementedError("loading a checkpoint directory: ROADMAP A5")
+        if checkpoint.looks_like_checkpoint_dir(self.model_source):
+            # a local HF-layout checkpoint: the architecture from its
+            # config.json, the weights loaded by the engine at start
+            return checkpoint.config_from_hf(self.model_source, **self.engine_kwargs)
         return get_config(self.model_source, **self.engine_kwargs)
+
+    def resolve_tokenizer_name(self) -> str:
+        """The checkpoint's own HF tokenizer when the tokenizer is left at
+        "byte" and model_source is a checkpoint directory that ships one."""
+        if self.tokenizer != "byte":
+            return self.tokenizer
+        if checkpoint.looks_like_checkpoint_dir(self.model_source) and any(
+            os.path.exists(os.path.join(self.model_source, f))
+            for f in ("tokenizer.json", "tokenizer_config.json")
+        ):
+            return f"hf:{self.model_source}"
+        return self.tokenizer
 
     def buckets(self) -> List[int]:
         if self.prefill_buckets:

@@ -21,10 +21,12 @@ verify forward scores the window and the accepted prefix plus a bonus token
 emit at once; with a fused burst width m > 1 the proposal runs on the device
 too, m windows per host sync. quantization="int8" stores the layer matmuls
 (expert stacks included) and an untied head as int8 with per-output-channel
-scales (W8A16): given weights are quantized once they are on the device, and
-the seeded init quantizes each layer as it is drawn, so a model whose float
-copy would not fit the card (mixtral-8x7b) starts in int8. Mixture-of-experts
-configs run in both layouts, with speculation and int8.
+scales (W8A16): given weights are quantized once they are on the device,
+and the seeded init and a checkpoint's load quantize each layer (each
+expert) as it is drawn or read, so a model whose float copy would not fit
+the card (mixtral-8x7b) starts in int8. A checkpoint directory as
+``model_source`` is loaded at start (models/checkpoint.py).
+Mixture-of-experts configs run in both layouts, with speculation and int8.
 
 P/D disaggregation: ``prefill_only`` on a prefill engine (weights only, no
 KV state) returns the prompt's KV as CPU tensors with the first sampled
@@ -51,7 +53,7 @@ import numpy as np
 import torch
 
 from ray_tpu_torch.device import resolve_device
-from ray_tpu_torch.models import llama
+from ray_tpu_torch.models import checkpoint, llama
 from ray_tpu_torch.models.config import torch_dtype
 from ray_tpu_torch.ops.quant import QTensor, quantize_llama_params
 
@@ -127,7 +129,7 @@ class TorchLLMEngine(LLMEngine):
     def __init__(self, config: LLMConfig, params=None, device=None):
         self.config = config
         self.model_config = config.resolve_model_config()
-        self.tokenizer = get_tokenizer(config.tokenizer)
+        self.tokenizer = get_tokenizer(config.resolve_tokenizer_name())
         self.device = resolve_device(device)
         self._params_in = params
         self._started = False
@@ -170,9 +172,10 @@ class TorchLLMEngine(LLMEngine):
     # -- lifecycle ---------------------------------------------------------------
     def start(self) -> None:
         """Place the weights on the device in config.dtype, then quantize them
-        when config.quantization says so (thread-safe, idempotent); the
-        seeded init quantizes layer by layer as it draws. The KV state and
-        the scheduler loop start on first use."""
+        when config.quantization says so (thread-safe, idempotent); a
+        checkpoint directory's load and the seeded init quantize piece by
+        piece as they go. The KV state and the scheduler loop start on first
+        use."""
         with self._start_lock:
             if self._started:
                 return
@@ -181,6 +184,9 @@ class TorchLLMEngine(LLMEngine):
             self._fused_auto = k_cfg == 0
             self._fused_fixed = 1 if self._fused_auto else _pow2_floor(k_cfg)
             dtype = torch_dtype(c.dtype)
+            if c.quantization and c.quantization != "int8":
+                # before any checkpoint byte is read (ray_tpu/llm/engine.py:303)
+                raise ValueError(f"unknown quantization {c.quantization!r} (supported: int8)")
             if self._params_in is not None:
                 def place(v):
                     if isinstance(v, QTensor):
@@ -194,6 +200,12 @@ class TorchLLMEngine(LLMEngine):
                 if c.quantization:
                     # on the device, one layer at a time (ray_tpu/llm/engine.py:325-331)
                     self.params = quantize_llama_params(self.params)
+            elif checkpoint.looks_like_checkpoint_dir(c.model_source):
+                # real weights, streamed piece by piece into preallocated
+                # leaves; int8 quantizes each piece as it arrives
+                self.params = checkpoint.load_llama_params(
+                    c.model_source, cfg, device=self.device, dtype=dtype,
+                    quantize_int8=bool(c.quantization))
             else:
                 # int8: each layer quantized as it is drawn, never the whole
                 # float model at once

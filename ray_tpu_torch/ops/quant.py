@@ -50,12 +50,14 @@ class QTensor(NamedTuple):
 
 
 def quantize(w: torch.Tensor, contract_axis: int = 0) -> QTensor:
-    """Symmetric per-output-channel int8 quantization over contract_axis."""
-    wf = w.float()
+    """Symmetric per-output-channel int8 quantization over contract_axis.
+    The division, rounding and clamp run in place on one f32 copy of w, so
+    the peak holds w and two f32 copies of it (the copy and |w|)."""
+    wf = w.to(torch.float32, copy=True)
     amax = wf.abs().amax(dim=contract_axis, keepdim=True)
     scale = torch.clamp_min(amax * _INV_127, 1e-12)
-    q = torch.round(wf / scale)
-    return QTensor(q=q.clamp(-127, 127).to(torch.int8), s=scale)
+    q = wf.div_(scale).round_().clamp_(-127, 127)
+    return QTensor(q=q.to(torch.int8), s=scale)
 
 
 def dequant(t: QTensor, dtype: torch.dtype) -> torch.Tensor:

@@ -26,7 +26,11 @@ floats, computed in float32 as JAX computes them. The update itself runs on
 the parameters' device with ``torch._foreach_*`` ops (memory-bound
 elementwise work, which the JAX package leaves to XLA outside any kernel) and
 updates the parameters and moments in place. It never reads a value back from
-the device.
+the device. Its temporaries (the bias-corrected moments) are made for a group
+of leaves at a time, of at most UPDATE_GROUP_BYTES unless one leaf is larger,
+so the update holds the parameters, gradients and moments plus two of the
+largest group, not two more copies of the model (3.16B f32 parameters of a
+2-layer Mixtral hold 47 GiB with their moments before any temporary).
 """
 from __future__ import annotations
 
@@ -38,6 +42,8 @@ import numpy as np
 import torch
 
 Schedule = Callable[[int], float]
+
+UPDATE_GROUP_BYTES = 1 << 30  # parameter bytes per group of the update's temporaries
 
 
 def warmup_cosine_decay_schedule(init_value: float, peak_value: float,
@@ -111,17 +117,42 @@ def adamw_update_(grads: List[torch.Tensor], state: AdamWState,
     lr = learning_rate(state.count)
     bc1 = float(f32(1) - f32(b1) ** f32(count))
     bc2 = float(f32(1) - f32(b2) ** f32(count))
-    if all(m.dtype == g.dtype for m, g in zip(state.mu, grads)):
-        torch._foreach_mul_(state.mu, b1)
-        mu32 = state.mu
+    for lo, hi in _groups(params):
+        _adamw_group_(grads[lo:hi], state.mu[lo:hi], state.nu[lo:hi], params[lo:hi],
+                      lr=lr, bc1=bc1, bc2=bc2, b1=b1, b2=b2, eps=eps,
+                      weight_decay=weight_decay)
+    return AdamWState(count, state.mu, state.nu)
+
+
+def _groups(params: List[torch.Tensor]) -> List[Tuple[int, int]]:
+    """[lo, hi) runs of consecutive leaves of at most UPDATE_GROUP_BYTES each
+    (a larger leaf alone)."""
+    out, lo, size = [], 0, 0
+    for i, p in enumerate(params):
+        nbytes = p.nelement() * p.element_size()
+        if i > lo and size + nbytes > UPDATE_GROUP_BYTES:
+            out.append((lo, i))
+            lo, size = i, 0
+        size += nbytes
+    if lo < len(params):
+        out.append((lo, len(params)))
+    return out
+
+
+def _adamw_group_(grads, mu, nu, params, *, lr, bc1, bc2, b1, b2, eps, weight_decay):
+    """The AdamW update of one group of leaves, in place. Every op is
+    elementwise, so a group gets the bits the whole list would."""
+    if all(m.dtype == g.dtype for m, g in zip(mu, grads)):
+        torch._foreach_mul_(mu, b1)
+        mu32 = mu
     else:  # optax's jitted update: f32 math, with b1 rounded to mu's dtype
         mu32 = [m.to(g.dtype).mul_(float(torch.tensor(b1, dtype=m.dtype)))
-                for m, g in zip(state.mu, grads)]
+                for m, g in zip(mu, grads)]
     torch._foreach_add_(mu32, grads, alpha=1 - b1)
-    torch._foreach_mul_(state.nu, b2)
-    torch._foreach_addcmul_(state.nu, grads, grads, value=1 - b2)
+    torch._foreach_mul_(nu, b2)
+    torch._foreach_addcmul_(nu, grads, grads, value=1 - b2)
     upd = torch._foreach_div(mu32, bc1)
-    denom = torch._foreach_div(state.nu, bc2)
+    denom = torch._foreach_div(nu, bc2)
     torch._foreach_sqrt_(denom)
     torch._foreach_add_(denom, eps)
     torch._foreach_div_(upd, denom)
@@ -130,10 +161,9 @@ def adamw_update_(grads: List[torch.Tensor], state: AdamWState,
         torch._foreach_add_(upd, params, alpha=weight_decay)
     torch._foreach_mul_(upd, -lr)
     torch._foreach_add_(params, upd)
-    for m, m32 in zip(state.mu, mu32):
+    for m, m32 in zip(mu, mu32):
         if m is not m32:
             m.copy_(m32)
-    return AdamWState(count, state.mu, state.nu)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -7,9 +7,10 @@ eagerly, so the step is a plain function: autograd takes the gradients
 updates the parameters and moments in place (``optim.py``). Parameters are
 f32; the model casts them to the activation dtype at use.
 
-Parts of the JAX module the port does not run yet raise NotImplementedError
-naming their ROADMAP item: warm starts from a checkpoint (A5), a device mesh
-(A6) and the grad-sync modes (A8).
+``init_state(checkpoint_dir=...)`` warm-starts from a local HF-layout
+checkpoint (models/checkpoint.py), loaded in f32 on the step's device. Parts
+of the JAX module the port does not run yet raise NotImplementedError naming
+their ROADMAP item: a device mesh (A6) and the grad-sync modes (A8).
 """
 from __future__ import annotations
 
@@ -18,7 +19,7 @@ from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple, Union
 import torch
 
 from ray_tpu_torch.device import resolve_device
-from ray_tpu_torch.models import llama
+from ray_tpu_torch.models import checkpoint, llama
 from ray_tpu_torch.models.config import ModelConfig, torch_dtype
 
 from . import optim
@@ -55,9 +56,7 @@ def make_optimizer(
                            grad_clip=grad_clip, mu_dtype=mu_dtype)
 
 
-def _not_yet(checkpoint_dir, mesh, sync) -> None:
-    if checkpoint_dir is not None:
-        raise NotImplementedError("init_state(checkpoint_dir=...): ROADMAP A5")
+def _not_yet(mesh, sync) -> None:
     if mesh is not None:
         raise NotImplementedError("a device mesh (model parallel training): ROADMAP A6")
     if sync is not None:
@@ -68,9 +67,15 @@ def init_state(cfg: ModelConfig, tx: optim.Optimizer, *, seed: int = 0, device=N
                checkpoint_dir: Optional[str] = None, mesh: Any = None,
                sync: Any = None) -> TrainState:
     """Fresh TrainState: llama.init(cfg, seed) in f32 on `device` (the CUDA
-    device unless "cpu" is asked for) and the optimizer's zero state."""
-    _not_yet(checkpoint_dir, mesh, sync)
-    params = llama.init(cfg, seed=seed, device=device, dtype=torch.float32)
+    device unless "cpu" is asked for) and the optimizer's zero state. With
+    checkpoint_dir the parameters are that checkpoint's instead, in f32 (a
+    warm start: fine-tuning from a released model)."""
+    _not_yet(mesh, sync)
+    if checkpoint_dir is not None:
+        params = checkpoint.load_llama_params(checkpoint_dir, cfg, device=device,
+                                              dtype=torch.float32)
+    else:
+        params = llama.init(cfg, seed=seed, device=device, dtype=torch.float32)
     leaves = llama.tree_leaves(params)
     for p in leaves:
         p.requires_grad_(True)
@@ -105,7 +110,7 @@ def make_train_step(
     moments IN PLACE and returns them; with donate=False it works on a copy
     and leaves the given state as it was. The step runs on `device` (the CUDA
     device unless "cpu" is asked for) and raises for a state elsewhere."""
-    _not_yet(None, None, sync)
+    _not_yet(None, sync)
     loss_fn = loss_fn or llama.loss_fn
     dev = resolve_device(device)
 

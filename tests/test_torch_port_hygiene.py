@@ -16,8 +16,8 @@ PKG = os.path.join(REPO, "ray_tpu_torch")
 
 _IMPORT_ALL_BLOCKED = r"""
 import importlib, pkgutil, sys
-sys.modules["jax"] = None
-sys.modules["ray_tpu"] = None
+for blocked in ("jax", "ray_tpu", "safetensors", "transformers"):
+    sys.modules[blocked] = None
 import ray_tpu_torch
 assert "torch" not in sys.modules, "importing the package must stay light"
 names = [m.name for m in pkgutil.walk_packages(ray_tpu_torch.__path__, "ray_tpu_torch.")]
@@ -26,14 +26,16 @@ for name in names:
 from ray_tpu_torch.ops import _build
 assert not _build._loaded, "importing must build no kernel"
 leaked = sorted(m for m, mod in sys.modules.items() if mod is not None
-                and (m in ("jax", "ray_tpu") or m.startswith(("jax.", "ray_tpu."))))
+                and m.split(".")[0] in ("jax", "ray_tpu", "safetensors", "transformers"))
 assert not leaked, leaked
 print(len(names))
 """
 
 
 def test_every_module_imports_with_jax_and_ray_tpu_blocked():
-    """In a fresh interpreter (never this worker's sys.modules)."""
+    """In a fresh interpreter (never this worker's sys.modules), with
+    safetensors and transformers blocked too: the port reads and writes
+    checkpoints itself."""
     proc = subprocess.run([sys.executable, "-c", _IMPORT_ALL_BLOCKED], cwd=REPO,
                           capture_output=True, text=True, timeout=120,
                           env=dict(os.environ, OMP_NUM_THREADS="1"))
@@ -162,18 +164,24 @@ def test_train_step_refuses_a_state_on_another_device(monkeypatch):
         train.make_train_step(tiny, tx)(state, {"tokens": torch.zeros((1, 4), dtype=torch.long)})
 
 
-@pytest.mark.parametrize("kwarg,item", [("checkpoint_dir", "A5"), ("mesh", "A6"),
-                                        ("sync", "A8")])
-def test_training_options_outside_the_slice_raise(kwarg, item):
+@pytest.mark.parametrize("kwarg,error,match", [
+    ("checkpoint_dir", FileNotFoundError, "no-such-checkpoint"),
+    ("mesh", NotImplementedError, "A6"),
+    ("sync", NotImplementedError, "A8")])
+def test_training_options_outside_the_slice_raise(tmp_path, kwarg, error, match):
+    """A mesh and the grad-sync modes raise naming their ROADMAP item; a
+    checkpoint_dir that does not exist raises FileNotFoundError, as the JAX
+    package's reader does."""
     from ray_tpu_torch import train
     from ray_tpu_torch.models import config
 
     tiny = config.get_config("test-tiny")
     tx = train.make_optimizer()
-    with pytest.raises(NotImplementedError, match=item):
-        train.init_state(tiny, tx, device="cpu", **{kwarg: "x"})
+    value = str(tmp_path / "no-such-checkpoint") if kwarg == "checkpoint_dir" else "x"
+    with pytest.raises(error, match=match):
+        train.init_state(tiny, tx, device="cpu", **{kwarg: value})
     if kwarg == "sync":
-        with pytest.raises(NotImplementedError, match=item):
+        with pytest.raises(error, match=match):
             train.make_train_step(tiny, tx, sync="x", device="cpu")
 
 
