@@ -130,6 +130,23 @@ Phases, each fatal on failure (the script exits non-zero and prints no result):
      quantize_llama_params of the bf16 load, the start's peak below int8 +
      one bf16 layer slice + 1 GiB, three greedy requests and a chat served.
      Each of A and B prints its wall time and the GiB held when it starts;
+  R. after B, RLlib PPO (A9), whose device work is plain torch (no Pallas
+     kernel lies on it, and no flash kernel may launch): R1, PPOLearner at
+     bench_rllib's _tpu_learner_body geometry (obs 64, Discrete(6), fcnet
+     [256, 256], batch 4096, minibatch 1024, 1 epoch), one update on the card
+     against the port's own CPU run of it (f32, TF32 off, 1e-4 of max|ref|
+     per leaf), then ms per minibatch update and updates/s over 20 updates
+     and the busy share of one update (torch.profiler); R2, PPO on
+     bench_rllib's Atari-shaped env (84x84x4 uint8, Discrete(6), its own
+     space objects: the card's machine has no gymnasium) with bench_ppo's
+     settings, the learner on the card and the runners on the host, 1
+     warm-up and 12 timed iterations: env steps/s, learner updates/s, the
+     learner's share of an iteration; the policy must learn (the last 3
+     iterations' mean episode_return_mean above the first one reported, the
+     share of action 1 in the last train batch above twice the first's and
+     1/3, P(action 1 | the bank's first frame) above 1/6); R3, gae_scan and
+     vtrace_block at [64, 1024] on the card against their CPU runs (1e-5 of
+     max|ref|) and their time;
  10. a JSON line of the kernels, the card's name and power limit, and last the
      line {"ok": true, "device": {...}}.
 With ``--json PATH`` a copy of every number is written to PATH as JSON.
@@ -145,6 +162,8 @@ import sys
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
+
+import numpy as np
 
 # O tolerances are atol + rtol*|O_ref| with atol == rtol, as assert_allclose
 # reads them. bf16: the kernel rounds P to bf16 for the tensor-core product and
@@ -1376,8 +1395,6 @@ def spec_path(torch, fa, card, params):
     prefill launch B1a n_layers times."""
     import functools
 
-    import numpy as np
-
     from ray_tpu_torch.llm import LLMConfig, SamplingParams, model_runner, paged
 
     mcfg = LLMConfig(model_source="llama3-8b").resolve_model_config()
@@ -1540,8 +1557,6 @@ class _ListDataset:
         return _ListDataset([fn(dict(r)) for r in self.rows], self.stages)
 
     def map_batches(self, fn, batch_size=16, fn_constructor_args=(), concurrency=1):
-        import numpy as np
-
         if isinstance(fn, type):
             fn = fn(*fn_constructor_args)
             self.stages.append(fn)
@@ -2501,6 +2516,286 @@ def moe_train_path(torch, fa, card):
     return out
 
 
+# phase R: RLlib PPO on the card (A9). bench_rllib.py's geometries: the
+# learner of _tpu_learner_body (bench_rllib.py:232-274) and bench_ppo's
+# settings on its Atari-shaped env (bench_rllib.py:30-121, 311-313).
+RL_LEARNER = dict(obs_dim=64, n_actions=6, hiddens=[256, 256], batch=4096, minibatch=1024,
+                  epochs=1, timed=20)
+RL_PPO = dict(runners=2, envs=4, fragment=64, train_batch=512, minibatch=128, epochs=2,
+              lr=3e-4, gamma=0.99, lambda_=0.95, clip_param=0.3, entropy_coeff=0.01,
+              iters=12)
+RL_SCAN_BLOCK = (64, 1024)  # [T, B]
+RL_LEARNER_TOL = 1e-4  # card against CPU after one update, f32, per leaf, of max|ref|
+RL_SCAN_TOL = 1e-5  # card against CPU, of max|ref|
+
+
+class Box:
+    """gymnasium.spaces.Box's shape, all a module reads of it (the card's
+    machine has no gymnasium)."""
+
+    def __init__(self, shape):
+        self.shape = tuple(shape)
+
+
+class Discrete:
+    def __init__(self, n):
+        self.n = int(n)
+
+
+class SyntheticAtariEnv:
+    """bench_rllib.py's SyntheticAtariEnv: Atari-shaped observations at
+    CartPole cost, random uint8 frames stamped from a pre-generated bank,
+    fixed-length episodes, reward 1 for action 1."""
+
+    def __init__(self, config=None):
+        config = config or {}
+        self.observation_space = Box((84, 84, 4))
+        self.action_space = Discrete(6)
+        self.ep_len = int(config.get("ep_len", 200))
+        self._bank = np.random.default_rng(0).integers(
+            0, 255, size=(16, 84, 84, 4), dtype=np.uint8)
+        self._t = 0
+
+    def reset(self, *, seed=None, options=None):
+        self._t = 0
+        return self._bank[0], {}
+
+    def step(self, action):
+        self._t += 1
+        obs = self._bank[self._t % len(self._bank)]
+        done = self._t >= self.ep_len
+        return obs, float(action == 1), done, False, {}
+
+    def close(self):
+        pass
+
+    @classmethod
+    def make_vec(cls, num_envs, config=None):
+        return SyntheticAtariVectorEnv(num_envs, config)
+
+
+class SyntheticAtariVectorEnv:
+    """bench_rllib.py's SyntheticAtariVectorEnv: one numpy-batched step for
+    all envs, with gymnasium 1.x next-step autoreset (a done env's next step
+    ignores the action and returns the new episode's first obs, reward 0)."""
+
+    def __init__(self, num_envs, config=None):
+        config = config or {}
+        self.num_envs = int(num_envs)
+        self.ep_len = int(config.get("ep_len", 200))
+        self._bank = np.random.default_rng(0).integers(
+            0, 255, size=(16, 84, 84, 4), dtype=np.uint8)
+        self._t = np.zeros(self.num_envs, dtype=np.int64)
+        self._needs_reset = np.zeros(self.num_envs, dtype=bool)
+
+    def reset(self, *, seed=None, options=None):
+        self._t[:] = 0
+        self._needs_reset[:] = False
+        return np.broadcast_to(
+            self._bank[0], (self.num_envs,) + self._bank.shape[1:]).copy(), {}
+
+    def step(self, actions):
+        actions = np.asarray(actions)
+        resetting = self._needs_reset
+        self._t = np.where(resetting, 0, self._t + 1)
+        obs = self._bank[self._t % len(self._bank)]
+        rewards = np.where(resetting, 0.0, (actions == 1).astype(np.float64))
+        term = np.where(resetting, False, self._t >= self.ep_len)
+        trunc = np.zeros(self.num_envs, dtype=bool)
+        self._needs_reset = term.copy()
+        return obs, rewards, term, trunc, {}
+
+    def close(self):
+        pass
+
+
+def leaf_errors(got, want):
+    """max|got - want| over max|want| for each leaf of two numpy trees."""
+    from ray_tpu_torch.rllib.core.rl_module import tree_leaves
+
+    return [float(np.max(np.abs(g - w)) / np.max(np.abs(w)))
+            for g, w in zip(tree_leaves(got), tree_leaves(want))]
+
+
+def rl_learner_path(torch, card):
+    """R1: PPOLearner at _tpu_learner_body's geometry on the card: one update
+    against the port's own CPU run of it (f32, TF32 off), then timed updates
+    and one update under torch.profiler."""
+    from ray_tpu_torch.rllib import PPOConfig, PPOLearner
+    from ray_tpu_torch.rllib.core.rl_module import Columns, RLModuleSpec
+
+    g = RL_LEARNER
+    spec = RLModuleSpec(observation_space=Box((g["obs_dim"],)),
+                        action_space=Discrete(g["n_actions"]),
+                        model_config={"fcnet_hiddens": g["hiddens"]})
+
+    def learner(device):
+        cfg = (PPOConfig().training(lr=3e-4, train_batch_size=g["batch"],
+                                    minibatch_size=g["minibatch"], num_epochs=g["epochs"])
+               .learners(device=device).debugging(seed=0))
+        out = PPOLearner(cfg, spec)
+        out.build()
+        return out
+
+    rng = np.random.default_rng(0)
+    n = g["batch"]
+    batch = {
+        Columns.OBS: rng.standard_normal((n, g["obs_dim"])).astype(np.float32),
+        Columns.ACTIONS: rng.integers(0, g["n_actions"], n).astype(np.int32),
+        Columns.ACTION_LOGP: np.full((n,), -np.log(g["n_actions"]), np.float32),
+        Columns.ADVANTAGES: rng.standard_normal(n).astype(np.float32),
+        Columns.VALUE_TARGETS: rng.standard_normal(n).astype(np.float32),
+    }
+    card_learner, cpu_learner = learner("cuda"), learner("cpu")
+    if not all(p.is_cuda for p in card_learner._leaves + card_learner.opt_state.mu):
+        raise SystemExit("R1: the learner's parameters or optimizer state are not on the card")
+    m_card, m_cpu = card_learner.update(batch), cpu_learner.update(batch)
+    errs = leaf_errors(card_learner.get_weights(), cpu_learner.get_weights())
+    print(f"  R1 one update on the card against the CPU: worst leaf {max(errs):.3e} of "
+          f"max|ref| (limit {RL_LEARNER_TOL}); total_loss {m_card['total_loss']:.6f} vs "
+          f"{m_cpu['total_loss']:.6f}", flush=True)
+    if max(errs) > RL_LEARNER_TOL or not all(math.isfinite(v) for v in m_card.values()):
+        raise SystemExit(f"R1: the card's update differs from the CPU's: {errs}")
+    steps = g["timed"] * (n // g["minibatch"]) * g["epochs"]
+    card_learner.update(batch)  # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(g["timed"]):
+        card_learner.update(batch)  # each ends with the metrics read-back
+    dt = time.perf_counter() - t0
+    update_ms = dt / steps * 1e3
+    print(f"  R1 learner: {update_ms:.3f} ms per minibatch update, {steps / dt:.1f} updates/s "
+          f"over {g['timed']} updates of {n} rows in minibatches of {g['minibatch']} [{card}]",
+          flush=True)
+    prof = profile_once(torch, "R1 one learner update", lambda: card_learner.update(batch))
+    return dict(max_leaf_err=max(errs), total_loss_card=m_card["total_loss"],
+                total_loss_cpu=m_cpu["total_loss"], minibatch_update_ms=update_ms,
+                updates_per_s=steps / dt, profile=prof, geometry=dict(g))
+
+
+def rl_ppo_path(torch, fa, card):
+    """R2: PPO on the Atari-shaped env with bench_ppo's settings: the learner
+    on the card, the runners on the host; 1 warm-up and RL_PPO['iters'] timed
+    iterations; the policy must learn."""
+    from ray_tpu_torch.rllib import PPOConfig
+
+    g = RL_PPO
+    cfg = (PPOConfig().environment(SyntheticAtariEnv)
+           .env_runners(num_env_runners=g["runners"], num_envs_per_env_runner=g["envs"],
+                        rollout_fragment_length=g["fragment"])
+           .training(lr=g["lr"], train_batch_size=g["train_batch"],
+                     minibatch_size=g["minibatch"], num_epochs=g["epochs"], gamma=g["gamma"],
+                     lambda_=g["lambda_"], clip_param=g["clip_param"],
+                     entropy_coeff=g["entropy_coeff"])
+           .debugging(seed=0))
+    algo = cfg.build_algo()
+    try:
+        learner = algo.learner_group.learners[0]
+        if learner.device.type != "cuda" or not all(p.is_cuda for p in learner._leaves):
+            raise SystemExit("R2: the learner is not on the card")
+        learner_s, action1 = [], []
+        update = algo.learner_group.update
+
+        def timed_update(batch):
+            action1.append(float(np.mean(batch["actions"] == 1)))
+            t = time.perf_counter()
+            out = update(batch)  # ends with the metrics read-back: the card is done
+            learner_s.append(time.perf_counter() - t)
+            return out
+
+        algo.learner_group.update = timed_update
+        results = [algo.train()]  # warm-up
+        torch.cuda.synchronize()
+        fa.reset_launch_count()
+        learner_s.clear()  # the warm-up's action share stays: the random policy's
+        t0 = time.perf_counter()
+        for _ in range(g["iters"]):
+            results.append(algo.train())
+        dt = time.perf_counter() - t0
+        flash = {k: fa.launch_count(k) for k in fa.KERNELS}
+        weights = algo.get_weights()
+        bank0 = SyntheticAtariEnv()._bank[0]
+        logits = algo._module.apply_np(weights, bank0[None])["action_dist_inputs"][0]
+    finally:
+        algo.stop()
+    timed = results[1:]
+    env_steps = sum(r["num_env_steps_trained"] for r in timed)
+    updates = sum(int(r["minibatch_steps"]) for r in timed)
+    returns = [r.get("episode_return_mean") for r in results]
+    first = next((i for i, r in enumerate(returns) if r is not None), None)
+    last3 = returns[-3:]
+    p = np.exp(logits - logits.max())
+    p1 = float(p[1] / p.sum())
+    out = dict(iters=g["iters"], wall_s=dt, env_steps=env_steps,
+               env_steps_per_s=env_steps / dt, updates=updates, updates_per_s=updates / dt,
+               learner_s=sum(learner_s), learner_share=sum(learner_s) / dt,
+               iteration_ms=dt / g["iters"] * 1e3, returns=returns, first_return_iter=first,
+               action1_share=action1, p_action1_frame0=p1, flash_launches=flash,
+               settings=dict(g))
+    print(f"  R2 PPO: {g['iters']} iterations in {dt:.3f} s: {env_steps / dt:.1f} env steps/s, "
+          f"{updates / dt:.1f} learner updates/s, learner {100 * out['learner_share']:.1f}% of "
+          f"an iteration ({out['iteration_ms']:.1f} ms) [{card}]", flush=True)
+    print(f"  R2 episode_return_mean by iteration (warm-up first): {returns}; share of action "
+          f"1 in each train batch: {[round(a, 4) for a in action1]}; P(action 1 | frame 0) = "
+          f"{p1:.4f}; flash launches {flash}", flush=True)
+    if first is None or None in last3 or not np.mean(last3) > returns[first]:
+        raise SystemExit(f"R2: the policy did not learn: returns {returns}")
+    # episode_return_mean is the return of an episode's last chunk (the
+    # runner's semantics), and those chunks grow from one episode to the next
+    # (8, 17, 26, 35 steps here), so it rises under a random policy too. The
+    # share of the rewarded action in the batch does not: a random policy
+    # keeps it at 1/6.
+    if not action1[-1] > max(2 * action1[0], 1 / 3):
+        raise SystemExit(f"R2: the share of action 1 did not grow: {action1}")
+    if not p1 > 1 / 6:
+        raise SystemExit(f"R2: P(action 1 | frame 0) = {p1}, not above 1/6")
+    if any(flash.values()):
+        raise SystemExit(f"R2: PPO launched a flash kernel: {flash}")
+    return out
+
+
+def rl_scan_check(torch, card):
+    """R3: gae_scan and vtrace_block on a [64, 1024] block on the card against
+    their CPU runs, and their time on the card."""
+    from ray_tpu_torch.rllib.utils import gae_scan, vtrace_block
+
+    rng = np.random.default_rng(0)
+    shape = RL_SCAN_BLOCK
+    host = dict(rewards=rng.standard_normal(shape).astype(np.float32),
+                values=rng.standard_normal(shape).astype(np.float32),
+                boot_values=rng.standard_normal(shape).astype(np.float32),
+                terminated=(rng.random(shape) < 0.02).astype(np.float32),
+                truncated=(rng.random(shape) < 0.01).astype(np.float32))
+    rhos = np.exp(0.5 * rng.standard_normal(shape)).astype(np.float32)
+    dev = {k: torch.from_numpy(v).cuda() for k, v in host.items()}
+    rhos_dev = torch.from_numpy(rhos).cuda()
+    kw = dict(gamma=0.99, lambda_=0.95)
+    runs = {"gae_scan": (lambda: gae_scan(**dev, **kw), lambda: gae_scan(**host, **kw)),
+            "vtrace_block": (lambda: vtrace_block(**dev, rhos=rhos_dev, **kw),
+                             lambda: vtrace_block(**host, rhos=rhos, **kw))}
+    out = {}
+    for name, (on_card, on_cpu) in runs.items():
+        got, want = on_card(), on_cpu()
+        errs = [float((g.cpu() - w).abs().max() / w.abs().max()) for g, w in zip(got, want)]
+        ms = time_ms(on_card)
+        out[name] = dict(errs=errs, ms=ms)
+        print(f"  R3 {name} [{shape[0]}, {shape[1]}]: card vs CPU {max(errs):.3e} of max|ref| "
+              f"(limit {RL_SCAN_TOL}); {ms:.3f} ms on the card [{card}]", flush=True)
+        if not all(g.is_cuda for g in got) or max(errs) > RL_SCAN_TOL:
+            raise SystemExit(f"R3: {name} on the card differs from the CPU: {errs}")
+    return out
+
+
+def rl_path(torch, fa, card):
+    """Phase R: R1, R2 and R3."""
+    t0 = time.perf_counter()
+    out = {"learner": rl_learner_path(torch, card), "ppo": rl_ppo_path(torch, fa, card),
+           "scans": rl_scan_check(torch, card)}
+    out["wall_s"] = time.perf_counter() - t0
+    print(f"  phase R took {out['wall_s']:.1f} s", flush=True)
+    return out
+
+
 SASS_OPS = ("HGMMA", "UTMALDG", "UTMASTG", "HMMA")  # wgmma, TMA load / store, mma.sync
 # the bf16 kernels of B1a, B1b and B1c at D = 64 and 128
 WGMMA_KERNELS = tuple(f"flash_{k}_bf16_wgmma_kernel<{d}>"
@@ -2649,6 +2944,10 @@ def main() -> int:
           "loaded, warm-started and served in int8 from the directory", flush=True)
     moe_trained = moe_train_path(torch, fa, card)
 
+    print("[R] RLlib PPO on the card: the learner at bench_rllib's geometry, PPO on its "
+          "Atari-shaped env, the GAE and V-trace scans", flush=True)
+    rl = rl_path(torch, fa, card)
+
     sources = {"flash_fwd": ("ray_tpu_torch/ops/csrc/flash_fwd.cu",
                              "ray_tpu/ops/flash_attention.py:123"),
                "flash_bwd_dq": ("ray_tpu_torch/ops/csrc/flash_bwd.cu",
@@ -2707,7 +3006,7 @@ def main() -> int:
                   served=served, numerics=numerics, paged=paged_served,
                   int8=quant_served, spec=spec_served, pd=pd_served,
                   trained=trained_runs, train_numerics=train_check, moe=moe_served,
-                  checkpoint=ckpt_served, moe_trained=moe_trained,
+                  checkpoint=ckpt_served, moe_trained=moe_trained, rl=rl,
                   kernels=kernels,
                   total_s=total_s)
     if json_path:

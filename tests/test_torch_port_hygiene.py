@@ -16,7 +16,7 @@ PKG = os.path.join(REPO, "ray_tpu_torch")
 
 _IMPORT_ALL_BLOCKED = r"""
 import importlib, pkgutil, sys
-for blocked in ("jax", "ray_tpu", "safetensors", "transformers"):
+for blocked in ("jax", "ray_tpu", "safetensors", "transformers", "gymnasium"):
     sys.modules[blocked] = None
 import ray_tpu_torch
 assert "torch" not in sys.modules, "importing the package must stay light"
@@ -26,7 +26,8 @@ for name in names:
 from ray_tpu_torch.ops import _build
 assert not _build._loaded, "importing must build no kernel"
 leaked = sorted(m for m, mod in sys.modules.items() if mod is not None
-                and m.split(".")[0] in ("jax", "ray_tpu", "safetensors", "transformers"))
+                and m.split(".")[0] in ("jax", "ray_tpu", "safetensors", "transformers",
+                                        "gymnasium"))
 assert not leaked, leaked
 print(len(names))
 """
@@ -35,7 +36,9 @@ print(len(names))
 def test_every_module_imports_with_jax_and_ray_tpu_blocked():
     """In a fresh interpreter (never this worker's sys.modules), with
     safetensors and transformers blocked too: the port reads and writes
-    checkpoints itself."""
+    checkpoints itself; and gymnasium, which the card's machine lacks (the
+    RL slice imports it only to make a string env id or wrap an env class
+    without make_vec)."""
     proc = subprocess.run([sys.executable, "-c", _IMPORT_ALL_BLOCKED], cwd=REPO,
                           capture_output=True, text=True, timeout=120,
                           env=dict(os.environ, OMP_NUM_THREADS="1"))
