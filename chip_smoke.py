@@ -134,8 +134,10 @@ Phases, each fatal on failure (the script exits non-zero and prints no result):
      kernel lies on it, and no flash kernel may launch): R1, PPOLearner at
      bench_rllib's _tpu_learner_body geometry (obs 64, Discrete(6), fcnet
      [256, 256], batch 4096, minibatch 1024, 1 epoch), one update on the card
-     against the port's own CPU run of it (f32, TF32 off, 1e-4 of max|ref|
-     per leaf), then ms per minibatch update and updates/s over 20 updates
+     against the port's own CPU run of it (f32, TF32 off; each step's
+     gradients and the state after the update, the CPU's optimizer fed the
+     card's gradients, each within 1e-4 of max|ref| per leaf: see
+     update_against_cpu), then ms per minibatch update and updates/s over 20 updates
      and the busy share of one update (torch.profiler); R2, PPO on
      bench_rllib's Atari-shaped env (84x84x4 uint8, Discrete(6), its own
      space objects: the card's machine has no gymnasium) with bench_ppo's
@@ -147,6 +149,26 @@ Phases, each fatal on failure (the script exits non-zero and prints no result):
      1/3, P(action 1 | the bank's first frame) above 1/6); R3, gae_scan and
      vtrace_block at [64, 1024] on the card against their CPU runs (1e-5 of
      max|ref|) and their time;
+  O. after R, RLlib's off-policy and offline algorithms (A9e, A9f), plain
+     torch too (no flash kernel may launch): O1, each learner at bench_rllib's
+     learner widths (obs 64, fcnet [256, 256]) with its algorithm's default
+     batch: DQN (Discrete(6), batch 64, with and without prioritized
+     weights), SAC (Box(6) in [-1, 1], batch 256), CQL (SAC's geometry, 4
+     actions, min_q_weight 5.0, a BC and a SAC update), MARWIL (Discrete(6),
+     batch 512): one update on the card against the same update on the CPU,
+     fed the same batch and noise (as R1: gradients and the state after it
+     within 1e-4 of max|ref| per leaf, target and moment),
+     then ms per update and updates/s over 20 updates and the busy share of
+     one (torch.profiler); O2, DQN on chip_smoke's numpy CartPole-v1 with
+     tests/test_dqn.py's config uncut (20 iterations), which must learn by
+     that test's bars, then 3 iterations with prioritized replay; O3, SAC on
+     the numpy Pendulum-v1 with tests/test_sac.py's config uncut (13
+     iterations; alpha < 1, evaluate(800) > -800); env steps/s, learner
+     updates/s and the learner's share for both; O4, BC on 40 episodes of
+     the heuristic CartPole expert through dataset= (mean_logp > -0.35, the
+     pole held > 100 steps), MARWIL from a newline-JSON file it writes, CQL
+     on 8 x 50 random Pendulum transitions with a checkpoint round trip that
+     must be bit-equal;
  10. a JSON line of the kernels, the card's name and power limit, and last the
      line {"ok": true, "device": {...}}.
 With ``--json PATH`` a copy of every number is written to PATH as JSON.
@@ -1548,10 +1570,13 @@ class _Handle:
 class _ListDataset:
     """A dataset stand-in over a list of row dicts: map, and map_batches over
     dict-of-array batches (a class is built once from fn_constructor_args
-    and kept in `stages`)."""
+    and kept in `stages`), and take_all (the offline algorithms' read)."""
 
     def __init__(self, rows, stages=None):
         self.rows, self.stages = rows, stages if stages is not None else []
+
+    def take_all(self):
+        return list(self.rows)
 
     def map(self, fn):
         return _ListDataset([fn(dict(r)) for r in self.rows], self.stages)
@@ -2525,16 +2550,19 @@ RL_PPO = dict(runners=2, envs=4, fragment=64, train_batch=512, minibatch=128, ep
               lr=3e-4, gamma=0.99, lambda_=0.95, clip_param=0.3, entropy_coeff=0.01,
               iters=12)
 RL_SCAN_BLOCK = (64, 1024)  # [T, B]
-RL_LEARNER_TOL = 1e-4  # card against CPU after one update, f32, per leaf, of max|ref|
+RL_LEARNER_TOL = 1e-4  # card against CPU, f32, per leaf of max|ref| (update_against_cpu)
 RL_SCAN_TOL = 1e-5  # card against CPU, of max|ref|
 
 
 class Box:
-    """gymnasium.spaces.Box's shape, all a module reads of it (the card's
-    machine has no gymnasium)."""
+    """gymnasium.spaces.Box's shape and, where given, its bounds: all a
+    module reads of it (the card's machine has no gymnasium)."""
 
-    def __init__(self, shape):
+    def __init__(self, shape, low=None, high=None):
         self.shape = tuple(shape)
+        if low is not None:
+            self.low = np.broadcast_to(np.asarray(low, np.float32), self.shape).copy()
+            self.high = np.broadcast_to(np.asarray(high, np.float32), self.shape).copy()
 
 
 class Discrete:
@@ -2609,18 +2637,200 @@ class SyntheticAtariVectorEnv:
         pass
 
 
+class SyncVectorEnv:
+    """gymnasium 1.x's SyncVectorEnv over a list of envs: one step of each in
+    turn, next-step autoreset (a done env's next step resets it, ignores its
+    action and returns reward 0), reset(seed=s) seeding env i with s + i."""
+
+    def __init__(self, envs):
+        self.envs = envs
+        self.num_envs = len(envs)
+        self._autoreset = np.zeros(self.num_envs, dtype=bool)
+
+    def reset(self, *, seed=None, options=None):
+        seeds = [None if seed is None else seed + i for i in range(self.num_envs)]
+        obs = [env.reset(seed=s)[0] for env, s in zip(self.envs, seeds)]
+        self._autoreset[:] = False
+        return np.stack(obs), {}
+
+    def step(self, actions):
+        obs, rewards = [], np.zeros(self.num_envs, np.float64)
+        terms, truncs = np.zeros(self.num_envs, bool), np.zeros(self.num_envs, bool)
+        for i, env in enumerate(self.envs):
+            if self._autoreset[i]:
+                o, _ = env.reset()
+            else:
+                o, rewards[i], terms[i], truncs[i], _ = env.step(actions[i])
+            obs.append(o)
+        self._autoreset = terms | truncs
+        return np.stack(obs), rewards, terms, truncs, {}
+
+    def close(self):
+        pass
+
+
+class CartPole:
+    """gymnasium's CartPole-v1 (envs/classic_control/cartpole.py), copied:
+    Euler steps of the cart-pole dynamics in f64, termination past 12 degrees
+    or 2.4 units, reward 1 a step, f32 observations, and TimeLimit's
+    truncation at 500 steps. reset(seed=s) draws the state as gymnasium's
+    seeded np_random does (default_rng(s))."""
+
+    max_episode_steps = 500
+
+    def __init__(self, config=None):
+        self.gravity, self.masscart, self.masspole = 9.8, 1.0, 0.1
+        self.total_mass = self.masspole + self.masscart
+        self.length = 0.5  # actually half the pole's length
+        self.polemass_length = self.masspole * self.length
+        self.force_mag, self.tau = 10.0, 0.02
+        self.theta_threshold_radians = 12 * 2 * math.pi / 360
+        self.x_threshold = 2.4
+        self.observation_space = Box((4,))
+        self.action_space = Discrete(2)
+        self.np_random = np.random.default_rng()
+        self.state, self._elapsed = None, 0
+
+    def reset(self, *, seed=None, options=None):
+        if seed is not None:
+            self.np_random = np.random.default_rng(seed)
+        self.state = self.np_random.uniform(low=-0.05, high=0.05, size=(4,))
+        self._elapsed = 0
+        return np.array(self.state, dtype=np.float32), {}
+
+    def step(self, action):
+        x, x_dot, theta, theta_dot = self.state
+        force = self.force_mag if action == 1 else -self.force_mag
+        costheta = np.cos(theta)
+        sintheta = np.sin(theta)
+        temp = (force + self.polemass_length * np.square(theta_dot) * sintheta) / self.total_mass
+        thetaacc = (self.gravity * sintheta - costheta * temp) / (
+            self.length * (4.0 / 3.0 - self.masspole * np.square(costheta) / self.total_mass))
+        xacc = temp - self.polemass_length * thetaacc * costheta / self.total_mass
+        x = x + self.tau * x_dot
+        x_dot = x_dot + self.tau * xacc
+        theta = theta + self.tau * theta_dot
+        theta_dot = theta_dot + self.tau * thetaacc
+        self.state = np.array((x, x_dot, theta, theta_dot), dtype=np.float64)
+        terminated = bool(x < -self.x_threshold or x > self.x_threshold
+                          or theta < -self.theta_threshold_radians
+                          or theta > self.theta_threshold_radians)
+        self._elapsed += 1
+        return (np.array(self.state, dtype=np.float32), 1.0, terminated,
+                self._elapsed >= self.max_episode_steps, {})
+
+    def close(self):
+        pass
+
+    @classmethod
+    def make_vec(cls, num_envs, config=None):
+        return SyncVectorEnv([cls(config) for _ in range(num_envs)])
+
+
+class Pendulum(CartPole):
+    """gymnasium's Pendulum-v1 (envs/classic_control/pendulum.py), copied:
+    g 10.0, m 1, l 1, max speed 8, max torque 2, dt 0.05, reward
+    -(normalized angle^2 + 0.1 speed^2 + 0.001 torque^2), observations
+    (cos, sin, speed) in f32, and TimeLimit's truncation at 200 steps."""
+
+    max_episode_steps = 200
+
+    def __init__(self, config=None):
+        self.max_speed, self.max_torque, self.dt = 8, 2.0, 0.05
+        self.g, self.m, self.l = 10.0, 1.0, 1.0
+        high = np.array([1.0, 1.0, self.max_speed], dtype=np.float32)
+        self.observation_space = Box((3,), -high, high)
+        self.action_space = Box((1,), -self.max_torque, self.max_torque)
+        self.np_random = np.random.default_rng()
+        self.state, self._elapsed = None, 0
+
+    def reset(self, *, seed=None, options=None):
+        if seed is not None:
+            self.np_random = np.random.default_rng(seed)
+        high = np.array([np.pi, 1.0])
+        self.state = self.np_random.uniform(low=-high, high=high)
+        self._elapsed = 0
+        return self._get_obs(), {}
+
+    def step(self, u):
+        th, thdot = self.state  # th := theta
+        g, m, l, dt = self.g, self.m, self.l, self.dt
+        u = np.clip(u, -self.max_torque, self.max_torque)[0]
+        costs = (((th + np.pi) % (2 * np.pi)) - np.pi) ** 2 + 0.1 * thdot**2 + 0.001 * (u**2)
+        newthdot = thdot + (3 * g / (2 * l) * np.sin(th) + 3.0 / (m * l**2) * u) * dt
+        newthdot = np.clip(newthdot, -self.max_speed, self.max_speed)
+        newth = th + newthdot * dt
+        self.state = np.array([newth, newthdot])
+        self._elapsed += 1
+        return self._get_obs(), -costs, False, self._elapsed >= self.max_episode_steps, {}
+
+    def _get_obs(self):
+        theta, thetadot = self.state
+        return np.array([np.cos(theta), np.sin(theta), thetadot], dtype=np.float32)
+
+
 def leaf_errors(got, want):
-    """max|got - want| over max|want| for each leaf of two numpy trees."""
+    """max|got - want| over max|want| for each leaf of two numpy trees; a
+    leaf whose reference is all zero (a target's untouched bias) is 0 when
+    got is zero too, else inf."""
     from ray_tpu_torch.rllib.core.rl_module import tree_leaves
 
-    return [float(np.max(np.abs(g - w)) / np.max(np.abs(w)))
-            for g, w in zip(tree_leaves(got), tree_leaves(want))]
+    out = []
+    for g, w in zip(tree_leaves(got), tree_leaves(want)):
+        diff, scale = float(np.max(np.abs(g - w))), float(np.max(np.abs(w)))
+        out.append(diff / scale if scale else (0.0 if diff == 0 else math.inf))
+    return out
+
+
+def update_against_cpu(card_l, cpu_l, batch):
+    """`update(batch)` on the card's learner, then on the CPU's, where each
+    optimizer step of the CPU's takes the card's gradients of that step.
+    Returns the worst per-leaf error (of max|ref|) of every step's gradients,
+    the card's against the CPU's own at the same parameters; the same of the
+    state after the update (params, adam's moments, targets), which then
+    holds the optimizer and the target syncs on equal inputs; and both
+    updates' metrics.
+
+    The two free-running updates are not compared: adam's step
+    lr * m / (sqrt(v) + eps) turns the f32 rounding of a gradient element
+    near 0 into a step difference of up to lr, so two correct f32 updates of
+    a leaf that starts at 0 (a bias) can differ by more than 1e-4 of its
+    max|ref|; and adam's first step, sign(g) * lr, hides a gradient's scale.
+    Gradients, and the optimizer on equal gradients, are each
+    well-conditioned."""
+    card_grads, grad_errs = [], []
+
+    def card_step(mbatch, *args, _grads=card_l._grads):
+        loss, aux, grads = _grads(mbatch, *args)
+        card_grads.append([g.detach().cpu().clone() for g in grads])
+        return loss, aux, grads
+
+    def cpu_step(mbatch, *args, _grads=cpu_l._grads):
+        loss, aux, grads = _grads(mbatch, *args)
+        want = card_grads[len(grad_errs)]
+        grad_errs.append(leaf_errors([g.numpy() for g in want], [g.numpy() for g in grads]))
+        return loss, aux, [g.clone() for g in want]
+
+    card_l._grads, cpu_l._grads = card_step, cpu_step
+    try:
+        m_card, m_cpu = card_l.update(batch), cpu_l.update(batch)
+    finally:
+        del card_l._grads, cpu_l._grads
+    if len(grad_errs) != len(card_grads):
+        raise SystemExit(f"the card took {len(card_grads)} optimizer steps, the CPU "
+                         f"{len(grad_errs)}")
+    got, want = card_l.get_state(), cpu_l.get_state()
+    keys = [k for k in ("params", "opt_state", "target_params") if k in want]
+    state_errs = [e for k in keys
+                  for e in leaf_errors(got[k], want[k])]
+    return dict(grad_err=max(max(e) for e in grad_errs), state_err=max(state_errs),
+                steps=len(grad_errs), m_card=m_card, m_cpu=m_cpu)
 
 
 def rl_learner_path(torch, card):
     """R1: PPOLearner at _tpu_learner_body's geometry on the card: one update
-    against the port's own CPU run of it (f32, TF32 off), then timed updates
-    and one update under torch.profiler."""
+    against the port's own CPU run of it (f32, TF32 off; update_against_cpu),
+    then timed updates and one update under torch.profiler."""
     from ray_tpu_torch.rllib import PPOConfig, PPOLearner
     from ray_tpu_torch.rllib.core.rl_module import Columns, RLModuleSpec
 
@@ -2649,13 +2859,15 @@ def rl_learner_path(torch, card):
     card_learner, cpu_learner = learner("cuda"), learner("cpu")
     if not all(p.is_cuda for p in card_learner._leaves + card_learner.opt_state.mu):
         raise SystemExit("R1: the learner's parameters or optimizer state are not on the card")
-    m_card, m_cpu = card_learner.update(batch), cpu_learner.update(batch)
-    errs = leaf_errors(card_learner.get_weights(), cpu_learner.get_weights())
-    print(f"  R1 one update on the card against the CPU: worst leaf {max(errs):.3e} of "
-          f"max|ref| (limit {RL_LEARNER_TOL}); total_loss {m_card['total_loss']:.6f} vs "
-          f"{m_cpu['total_loss']:.6f}", flush=True)
-    if max(errs) > RL_LEARNER_TOL or not all(math.isfinite(v) for v in m_card.values()):
-        raise SystemExit(f"R1: the card's update differs from the CPU's: {errs}")
+    cmp = update_against_cpu(card_learner, cpu_learner, batch)
+    m_card, m_cpu = cmp["m_card"], cmp["m_cpu"]
+    print(f"  R1 one update on the card against the CPU: worst leaf of max|ref| over "
+          f"{cmp['steps']} steps' gradients {cmp['grad_err']:.3e}, of the state after it "
+          f"{cmp['state_err']:.3e} (limit {RL_LEARNER_TOL}); total_loss "
+          f"{m_card['total_loss']:.6f} vs {m_cpu['total_loss']:.6f}", flush=True)
+    if (max(cmp["grad_err"], cmp["state_err"]) > RL_LEARNER_TOL
+            or not all(math.isfinite(v) for v in m_card.values())):
+        raise SystemExit(f"R1: the card's update differs from the CPU's: {cmp}")
     steps = g["timed"] * (n // g["minibatch"]) * g["epochs"]
     card_learner.update(batch)  # warm
     torch.cuda.synchronize()
@@ -2668,7 +2880,8 @@ def rl_learner_path(torch, card):
           f"over {g['timed']} updates of {n} rows in minibatches of {g['minibatch']} [{card}]",
           flush=True)
     prof = profile_once(torch, "R1 one learner update", lambda: card_learner.update(batch))
-    return dict(max_leaf_err=max(errs), total_loss_card=m_card["total_loss"],
+    return dict(max_grad_err=cmp["grad_err"], max_leaf_err=cmp["state_err"],
+                total_loss_card=m_card["total_loss"],
                 total_loss_cpu=m_cpu["total_loss"], minibatch_update_ms=update_ms,
                 updates_per_s=steps / dt, profile=prof, geometry=dict(g))
 
@@ -2793,6 +3006,407 @@ def rl_path(torch, fa, card):
            "scans": rl_scan_check(torch, card)}
     out["wall_s"] = time.perf_counter() - t0
     print(f"  phase R took {out['wall_s']:.1f} s", flush=True)
+    return out
+
+
+# phase O: RLlib's off-policy and offline algorithms on the card (A9e, A9f).
+# O1 builds each learner at bench_rllib's learner widths (obs 64, fcnet [256,
+# 256], bench_rllib.py:232-274) with its algorithm's default batch; O2-O4
+# are tests/test_dqn.py:98-112,135-141, tests/test_sac.py:53-60 and
+# tests/test_offline_rl.py:13-34,81-97,130-155 uncut, on chip_smoke's numpy
+# copies of CartPole-v1 and Pendulum-v1.
+RL_OFF_GEOM = dict(obs_dim=64, hiddens=[256, 256], n_actions=6, act_dim=6, timed=20)
+RL_OFF_TOL = 1e-4  # card against CPU, f32, per leaf of max|ref| (update_against_cpu)
+RL_DQN = dict(runners=2, envs=4, fragment=64, lr=1e-3, gamma=0.99, batch=128,
+              capacity=20_000, learning_starts=500, target_freq=50, epsilon=(1.0, 0.05),
+              epsilon_timesteps=3000, updates=64, steps=512, iters=20)
+RL_DQN_PRIORITIZED = dict(runners=1, envs=2, fragment=32, batch=32, learning_starts=100,
+                          updates=4, steps=128, iters=3)
+RL_SAC = dict(runners=2, envs=2, fragment=64, lr=1e-3, batch=256, learning_starts=500,
+              updates=256, steps=256, iters=13, eval_steps=800)
+
+
+def _off_learner(name, dev):
+    """O1's learner `name` on `dev` and a seeded batch for it: DQN (Discrete(6),
+    batch 64, with and without prioritized weights), SAC and CQL (Box(6) in
+    [-1, 1], batch 256; CQL with its defaults, 4 actions, min_q_weight 5.0, in
+    a BC and a SAC update) and MARWIL (Discrete(6), batch 512, beta 1)."""
+    from ray_tpu_torch import rllib
+    from ray_tpu_torch.rllib.core.rl_module import DQNModule, MLPModule, RLModuleSpec, SACModule
+
+    g = RL_OFF_GEOM
+    discrete = name.startswith(("dqn", "marwil"))
+    act_space = Discrete(g["n_actions"]) if discrete else Box((g["act_dim"],), -1.0, 1.0)
+    config, learner_cls, module_cls, b = {
+        "dqn": (rllib.DQNConfig(), rllib.DQNLearner, DQNModule, 64),
+        "dqn_prioritized": (rllib.DQNConfig(), rllib.DQNLearner, DQNModule, 64),
+        "sac": (rllib.SACConfig(), rllib.SACLearner, SACModule, 256),
+        "cql_bc": (rllib.CQLConfig(), rllib.CQLLearner, SACModule, 256),
+        "cql_sac": (rllib.CQLConfig().training(bc_iters=0), rllib.CQLLearner, SACModule, 256),
+        "marwil": (rllib.MARWILConfig(), rllib.MARWILLearner, MLPModule, 512),
+    }[name]
+    config = (config.training(train_batch_size=b)
+              .rl_module(model_config={"fcnet_hiddens": g["hiddens"]})
+              .learners(device=dev).debugging(seed=0))
+    spec = RLModuleSpec(module_class=module_cls, observation_space=Box((g["obs_dim"],)),
+                        action_space=act_space, model_config=config.model_config)
+    learner = learner_cls(config, spec)
+    learner.build()
+    rng = np.random.default_rng(0)
+    batch = {"obs": rng.standard_normal((b, g["obs_dim"])).astype(np.float32),
+             "next_obs": rng.standard_normal((b, g["obs_dim"])).astype(np.float32),
+             "actions": (rng.integers(0, g["n_actions"], b) if discrete else
+                         rng.uniform(-1, 1, (b, g["act_dim"])).astype(np.float32)),
+             "rewards": rng.standard_normal(b).astype(np.float32),
+             "dones": (rng.random(b) < 0.1).astype(np.float32)}
+    if name == "dqn_prioritized":
+        batch["weights"] = rng.uniform(0.2, 1.0, b).astype(np.float32)
+        batch["batch_indexes"] = np.arange(b, dtype=np.int64)
+    if name == "marwil":
+        batch["returns_to_go"] = rng.standard_normal(b).astype(np.float32)
+    return learner, batch
+
+
+def rl_off_learner_path(torch, card, dev="cuda"):
+    """O1: each off-policy learner's update on the card against the same
+    update on the CPU (the same batch and the same noise tensors), then
+    RL_OFF_GEOM['timed'] updates timed on the host clock (each ends in its
+    read-back) and one update under torch.profiler."""
+    out = {}
+    for name in ("dqn", "dqn_prioritized", "sac", "cql_bc", "cql_sac", "marwil"):
+        card_l, batch = _off_learner(name, dev)
+        cpu_l, _ = _off_learner(name, "cpu")
+        if not all(p.device.type == torch.device(dev).type
+                   for p in card_l._leaves + card_l.opt_state.mu):
+            raise SystemExit(f"O1 {name}: the learner's parameters or optimizer state are "
+                             "not on the card")
+        if hasattr(cpu_l, "draw_noise"):  # the same noise on both sides
+            noise = cpu_l.draw_noise(len(batch["obs"]))
+            cpu_l.draw_noise = lambda _b, n=noise: n
+            card_l.draw_noise = lambda _b, n={k: v.to(dev) for k, v in noise.items()}: n
+        cmp = update_against_cpu(card_l, cpu_l, batch)
+        m_card, m_cpu = cmp["m_card"], cmp["m_cpu"]
+        losses_finite = all(math.isfinite(v) for k, v in m_card.items() if not k.startswith("_"))
+        print(f"  O1 {name}: one update on the card against the CPU: worst leaf of max|ref| "
+              f"over {cmp['steps']} steps' gradients {cmp['grad_err']:.3e}, of the state "
+              f"after it (params, moments, targets) {cmp['state_err']:.3e} (limit "
+              f"{RL_OFF_TOL}); total_loss {m_card['total_loss']:.6f} vs "
+              f"{m_cpu['total_loss']:.6f}", flush=True)
+        if max(cmp["grad_err"], cmp["state_err"]) > RL_OFF_TOL or not losses_finite:
+            raise SystemExit(f"O1 {name}: the card's update differs from the CPU's: {cmp}")
+        card_l.__dict__.pop("draw_noise", None)  # timed updates draw their own
+        card_l.update(batch)  # warm
+        torch.cuda.synchronize()
+        n = RL_OFF_GEOM["timed"]
+        t0 = time.perf_counter()
+        for _ in range(n):
+            card_l.update(batch)
+        dt = time.perf_counter() - t0
+        ms = dt / n * 1e3
+        print(f"  O1 {name}: {ms:.3f} ms per update, {n / dt:.1f} updates/s over {n} updates "
+              f"of {len(batch['obs'])} rows [{card}]", flush=True)
+        prof = profile_once(torch, f"O1 {name} one update", lambda: card_l.update(batch))
+        out[name] = dict(max_grad_err=cmp["grad_err"], max_leaf_err=cmp["state_err"],
+                         total_loss_card=m_card["total_loss"],
+                         total_loss_cpu=m_cpu["total_loss"], update_ms=ms,
+                         updates_per_s=n / dt, batch=len(batch["obs"]), profile=prof)
+    return out
+
+
+def _timed_learner(algo):
+    """Wrap the learner group's update to sum its seconds (it ends in the
+    metrics read-back, so the card is done) and count its calls."""
+    spent = {"s": 0.0, "updates": 0}
+    update = algo.learner_group.update
+
+    def timed(batch):
+        t = time.perf_counter()
+        res = update(batch)
+        spent["s"] += time.perf_counter() - t
+        spent["updates"] += 1
+        return res
+
+    algo.learner_group.update = timed
+    return spent
+
+
+def _on_card(torch, algo, dev, tag):
+    learner = algo.learner_group.learners[0]
+    kind = torch.device(dev).type
+    if learner.device.type != kind or not all(p.device.type == kind for p in learner._leaves):
+        raise SystemExit(f"{tag}: the learner is not on the card")
+
+
+def rl_dqn_path(torch, card, dev="cuda"):
+    """O2: DQN on CartPole with tests/test_dqn.py's config, uncut; it must
+    learn by that test's bars. Then 3 iterations with prioritized replay."""
+    from ray_tpu_torch.rllib import DQNConfig
+
+    g = RL_DQN
+    algo = (DQNConfig().environment(CartPole)
+            .env_runners(num_env_runners=g["runners"], num_envs_per_env_runner=g["envs"],
+                         rollout_fragment_length=g["fragment"])
+            .training(lr=g["lr"], gamma=g["gamma"], train_batch_size=g["batch"],
+                      replay_buffer_capacity=g["capacity"],
+                      num_steps_sampled_before_learning_starts=g["learning_starts"],
+                      target_network_update_freq=g["target_freq"], epsilon=g["epsilon"],
+                      epsilon_timesteps=g["epsilon_timesteps"],
+                      num_updates_per_iteration=g["updates"],
+                      sample_timesteps_per_iteration=g["steps"])
+            .learners(device=dev).build_algo())
+    try:
+        _on_card(torch, algo, dev, "O2")
+        spent = _timed_learner(algo)
+        first, best, returns = None, -np.inf, []
+        t0 = time.perf_counter()
+        for _ in range(g["iters"]):
+            result = algo.step()
+            ret = result.get("episode_return_mean")
+            returns.append(ret)
+            if ret is not None:
+                first = ret if first is None else first
+                best = max(best, ret)
+        dt = time.perf_counter() - t0
+        steps = result["num_env_steps_sampled_lifetime"]
+    finally:
+        algo.stop()
+    out = dict(iters=g["iters"], wall_s=dt, env_steps=steps, env_steps_per_s=steps / dt,
+               updates=spent["updates"], updates_per_s=spent["updates"] / dt,
+               learner_share=spent["s"] / dt, returns=returns, first_return=first,
+               best_return=best, epsilon=result["epsilon"], mean_q=result["mean_q"],
+               settings=dict(g))
+    print(f"  O2 DQN on CartPole: {g['iters']} iterations in {dt:.3f} s: {steps / dt:.1f} env "
+          f"steps/s, {spent['updates'] / dt:.1f} learner updates/s, learner "
+          f"{100 * out['learner_share']:.1f}% of an iteration [{card}]", flush=True)
+    print(f"  O2 episode_return_mean by iteration: {[None if r is None else round(r, 2) for r in returns]}; "
+          f"epsilon {result['epsilon']:.4f}, mean_q {result['mean_q']:.3f}", flush=True)
+    if not (result["epsilon"] < 0.5 and result["mean_q"] > 5.0 and first is not None
+            and best >= 28.0 and best > first + 6.0):
+        raise SystemExit(f"O2: DQN did not learn by tests/test_dqn.py's bars: epsilon "
+                         f"{result['epsilon']}, mean_q {result['mean_q']}, first {first}, "
+                         f"best {best}")
+    p = RL_DQN_PRIORITIZED
+    algo = (DQNConfig().environment(CartPole)
+            .env_runners(num_env_runners=p["runners"], num_envs_per_env_runner=p["envs"],
+                         rollout_fragment_length=p["fragment"])
+            .training(prioritized_replay=True, train_batch_size=p["batch"],
+                      num_steps_sampled_before_learning_starts=p["learning_starts"],
+                      num_updates_per_iteration=p["updates"],
+                      sample_timesteps_per_iteration=p["steps"])
+            .learners(device=dev).build_algo())
+    try:
+        _on_card(torch, algo, dev, "O2 prioritized")
+        for _ in range(p["iters"]):
+            result = algo.step()
+        prios = algo.buffer._priorities[: len(algo.buffer)]
+    finally:
+        algo.stop()
+    out["prioritized_total_loss"] = result.get("total_loss")
+    out["prioritized_distinct_priorities"] = int(len(np.unique(prios)))
+    print(f"  O2 prioritized replay: total_loss {result.get('total_loss')}, "
+          f"{out['prioritized_distinct_priorities']} distinct priorities in the buffer",
+          flush=True)
+    if not math.isfinite(result.get("total_loss", math.nan)) or len(np.unique(prios)) < 2:
+        raise SystemExit("O2: prioritized replay gave no finite loss or no priority update")
+    return out
+
+
+def rl_sac_path(torch, card, dev="cuda"):
+    """O3: SAC on Pendulum with tests/test_sac.py's config, uncut; it must
+    learn by that test's bars."""
+    from ray_tpu_torch.rllib import SACConfig
+
+    g = RL_SAC
+    algo = (SACConfig().environment(Pendulum)
+            .env_runners(num_env_runners=g["runners"], num_envs_per_env_runner=g["envs"],
+                         rollout_fragment_length=g["fragment"])
+            .training(lr=g["lr"], train_batch_size=g["batch"],
+                      num_steps_sampled_before_learning_starts=g["learning_starts"],
+                      num_updates_per_iteration=g["updates"],
+                      sample_timesteps_per_iteration=g["steps"])
+            .learners(device=dev).build_algo())
+    try:
+        _on_card(torch, algo, dev, "O3")
+        spent = _timed_learner(algo)
+        t0 = time.perf_counter()
+        for _ in range(g["iters"]):
+            result = algo.step()
+        dt = time.perf_counter() - t0
+        steps = result["num_env_steps_sampled_lifetime"]
+        ev = algo.evaluate(num_timesteps=g["eval_steps"])["evaluation"]["episode_return_mean"]
+    finally:
+        algo.stop()
+    out = dict(iters=g["iters"], wall_s=dt, env_steps=steps, env_steps_per_s=steps / dt,
+               updates=spent["updates"], updates_per_s=spent["updates"] / dt,
+               learner_share=spent["s"] / dt, alpha=result["alpha"],
+               critic_loss=result["critic_loss"], eval_return=ev, settings=dict(g))
+    print(f"  O3 SAC on Pendulum: {g['iters']} iterations in {dt:.3f} s: {steps / dt:.1f} env "
+          f"steps/s, {spent['updates'] / dt:.1f} learner updates/s, learner "
+          f"{100 * out['learner_share']:.1f}% of an iteration [{card}]", flush=True)
+    print(f"  O3 alpha {result['alpha']:.4f}, critic_loss {result['critic_loss']:.4f}, "
+          f"evaluate({g['eval_steps']}) return {ev}", flush=True)
+    if not (result["alpha"] < 1.0 and math.isfinite(result["critic_loss"])
+            and ev is not None and ev > -800.0):
+        raise SystemExit(f"O3: SAC did not learn by tests/test_sac.py's bars: {out}")
+    return out
+
+
+def expert_cartpole_rows(n_eps=40, seed=0):
+    """tests/test_offline_rl.py's recording: a heuristic policy (push toward
+    the pole's lean) on CartPole, at most 200 steps an episode."""
+    rng = np.random.default_rng(seed)
+    env = CartPole()
+    rows, eid = [], 0
+    for _ in range(n_eps):
+        obs, _ = env.reset(seed=int(rng.integers(1 << 30)))
+        t = 0
+        while True:
+            action = int(obs[2] + 0.4 * obs[3] > 0)  # angle + angular velocity
+            nxt, r, term, trunc, _ = env.step(action)
+            rows.append({"obs": obs.tolist(), "actions": action, "rewards": float(r),
+                         "next_obs": nxt.tolist(), "dones": bool(term), "eps_id": eid, "t": t})
+            obs, t = nxt, t + 1
+            if term or trunc or t >= 200:
+                break
+        eid += 1
+    return rows
+
+
+def random_pendulum_rows(n_eps=8, steps=50, seed=0):
+    """tests/test_offline_rl.py's CQL data: random torques on Pendulum."""
+    env = Pendulum()
+    rng = np.random.default_rng(seed)
+    rows = []
+    for eid in range(n_eps):
+        obs, _ = env.reset(seed=int(rng.integers(1 << 30)))
+        for t in range(steps):
+            a = rng.uniform(-2, 2, size=(1,)).astype(np.float32)
+            nxt, r, term, trunc, _ = env.step(a)
+            rows.append({"obs": obs.tolist(), "actions": a.tolist(), "rewards": float(r),
+                         "next_obs": nxt.tolist(), "dones": False, "eps_id": eid, "t": t})
+            obs = nxt
+    return rows
+
+
+def rl_offline_path(torch, card, dev="cuda"):
+    """O4: BC on the heuristic expert's CartPole rows through dataset=, which
+    must hold the pole; MARWIL from a newline-JSON file; CQL on random
+    Pendulum transitions, saved and loaded bit-equal."""
+    import shutil
+    import tempfile
+
+    from ray_tpu_torch.rllib import BCConfig, CQLConfig, MARWILConfig
+    from ray_tpu_torch.rllib.core.rl_module import tree_leaves
+
+    out = {}
+    env = CartPole()
+    rows = expert_cartpole_rows()
+    algo = (BCConfig().environment(observation_space=env.observation_space,
+                                   action_space=env.action_space)
+            .offline_data(dataset=_ListDataset(rows))
+            .training(lr=1e-3, train_batch_size=512, num_updates_per_iteration=40)
+            .learners(device=dev).debugging(seed=0).build_algo())
+    try:
+        _on_card(torch, algo, dev, "O4 BC")
+        t0 = time.perf_counter()
+        for _ in range(4):
+            result = algo.train()
+        dt = time.perf_counter() - t0
+        module, params = algo._module, algo.get_weights()
+    finally:
+        algo.stop()
+    obs, _ = env.reset(seed=3)
+    held = 0
+    for _ in range(300):
+        logits = module.apply_np(params, obs[None].astype(np.float32))["action_dist_inputs"]
+        obs, _, term, trunc, _ = env.step(int(np.argmax(logits[0])))
+        held += 1
+        if term or trunc:
+            break
+    out["bc"] = dict(rows=len(rows), mean_logp=result["mean_logp"], held_steps=held,
+                     wall_s=dt, updates_per_s=4 * 40 / dt)
+    print(f"  O4 BC on {len(rows)} expert rows: mean_logp {result['mean_logp']:.4f} (bar "
+          f"-0.35), the cloned policy holds the pole {held} steps (bar 100); 160 updates "
+          f"in {dt:.3f} s [{card}]", flush=True)
+    if not (result["mean_logp"] > -0.35 and held > 100):
+        raise SystemExit(f"O4: BC did not clone the expert: {out['bc']}")
+
+    root = tempfile.mkdtemp(prefix="offline-")
+    try:
+        path = os.path.join(root, "rows.json")
+        with open(path, "w") as f:
+            for row in expert_cartpole_rows(n_eps=10):
+                f.write(json.dumps(row) + "\n")
+        algo = (MARWILConfig().environment(observation_space=env.observation_space,
+                                           action_space=env.action_space)
+                .offline_data(input_=path)
+                .training(beta=1.0, train_batch_size=256, num_updates_per_iteration=5)
+                .learners(device=dev).debugging(seed=0).build_algo())
+        try:
+            _on_card(torch, algo, dev, "O4 MARWIL")
+            result = algo.train()
+            n_rows = len(algo.offline_data)
+        finally:
+            algo.stop()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out["marwil"] = dict(rows=n_rows, policy_loss=result["policy_loss"],
+                         vf_loss=result["vf_loss"])
+    print(f"  O4 MARWIL (beta 1) from {n_rows} newline-JSON rows: policy_loss "
+          f"{result['policy_loss']:.4f}, vf_loss {result['vf_loss']:.4f}", flush=True)
+    if not (math.isfinite(result["policy_loss"]) and math.isfinite(result["vf_loss"])):
+        raise SystemExit(f"O4: MARWIL's losses are not finite: {out['marwil']}")
+
+    pend = Pendulum()
+
+    def cql():
+        return (CQLConfig().environment(observation_space=pend.observation_space,
+                                        action_space=pend.action_space)
+                .offline_data(dataset=_ListDataset(random_pendulum_rows()))
+                .training(train_batch_size=64, num_updates_per_iteration=6, bc_iters=3,
+                          min_q_weight=1.0, num_cql_actions=2)
+                .learners(device=dev).debugging(seed=0).build_algo())
+
+    algo, other = cql(), cql()
+    try:
+        _on_card(torch, algo, dev, "O4 CQL")
+        result = algo.train()  # covers bc_iters warm-start then Q-based actor
+        state = algo.save_checkpoint()
+        other.load_checkpoint(state)
+        a, b = algo.learner_group.get_state(), other.learner_group.get_state()
+    finally:
+        algo.stop()
+        other.stop()
+    same = (a["num_updates"] == b["num_updates"] == 6
+            and a["opt_state"]["count"] == b["opt_state"]["count"]
+            and all(np.array_equal(x, y) for key in ("params", "target_params")
+                    for x, y in zip(tree_leaves(a[key]), tree_leaves(b[key])))
+            and all(np.array_equal(x, y) for key in ("mu", "nu") for x, y in
+                    zip(tree_leaves(a["opt_state"][key]), tree_leaves(b["opt_state"][key]))))
+    out["cql"] = dict(critic_loss=result["critic_loss"], cql_loss=result["cql_loss"],
+                      checkpoint_bit_equal=same)
+    print(f"  O4 CQL on 8 x 50 random Pendulum transitions: critic_loss "
+          f"{result['critic_loss']:.4f}, cql_loss {result['cql_loss']:.4f}; checkpoint round "
+          f"trip bit-equal (params, targets, moments, num_updates): {same}", flush=True)
+    if not (math.isfinite(result["critic_loss"]) and math.isfinite(result["cql_loss"]) and same):
+        raise SystemExit(f"O4: CQL failed: {out['cql']}")
+    return out
+
+
+def rl_offpolicy_path(torch, fa, card, dev="cuda"):
+    """Phase O: O1, O2, O3 and O4; no flash kernel may launch."""
+    t0 = time.perf_counter()
+    fa.reset_launch_count()
+    out = {"learners": rl_off_learner_path(torch, card, dev),
+           "dqn": rl_dqn_path(torch, card, dev), "sac": rl_sac_path(torch, card, dev),
+           "offline": rl_offline_path(torch, card, dev)}
+    out["flash_launches"] = {k: fa.launch_count(k) for k in fa.KERNELS}
+    out["wall_s"] = time.perf_counter() - t0
+    print(f"  phase O took {out['wall_s']:.1f} s; flash launches {out['flash_launches']}",
+          flush=True)
+    if any(out["flash_launches"].values()):
+        raise SystemExit(f"O: an off-policy algorithm launched a flash kernel: "
+                         f"{out['flash_launches']}")
     return out
 
 
@@ -2948,6 +3562,11 @@ def main() -> int:
           "Atari-shaped env, the GAE and V-trace scans", flush=True)
     rl = rl_path(torch, fa, card)
 
+    print("[O] RLlib off-policy and offline on the card: DQN, SAC, CQL and MARWIL learners "
+          "against the CPU, DQN on CartPole, SAC on Pendulum, BC, MARWIL and CQL from "
+          "recorded rows", flush=True)
+    rl_off = rl_offpolicy_path(torch, fa, card)
+
     sources = {"flash_fwd": ("ray_tpu_torch/ops/csrc/flash_fwd.cu",
                              "ray_tpu/ops/flash_attention.py:123"),
                "flash_bwd_dq": ("ray_tpu_torch/ops/csrc/flash_bwd.cu",
@@ -3007,6 +3626,7 @@ def main() -> int:
                   int8=quant_served, spec=spec_served, pd=pd_served,
                   trained=trained_runs, train_numerics=train_check, moe=moe_served,
                   checkpoint=ckpt_served, moe_trained=moe_trained, rl=rl,
+                  rl_offpolicy=rl_off,
                   kernels=kernels,
                   total_s=total_s)
     if json_path:

@@ -7,9 +7,9 @@ ray_tpu/tune/trainable.py; the port keeps its own copy of the few lines of
 it that Algorithm uses (``Trainable`` below).
 
 The learner runs on the config's device (the card unless it asks for the
-CPU); the env runners step on the host, in the calling process. The
-decoupled rollout plane (ROADMAP A9c) and offline algorithms (A9f) are not
-ported.
+CPU); the env runners step on the host, in the calling process. An offline
+algorithm (no env) takes its spaces from the config and builds no runners.
+The decoupled rollout plane (ROADMAP A9c) is not ported.
 """
 from __future__ import annotations
 
@@ -91,14 +91,19 @@ class Algorithm(Trainable):
     # -- Trainable hooks -------------------------------------------------------
     def setup(self, _config: Dict[str, Any]) -> None:
         cfg = self._algo_config
-        if cfg.env is None:
-            raise NotImplementedError(
-                "an algorithm without an env (offline data) is not ported yet (ROADMAP A9f)")
         resolve_device(cfg.device)  # before any env is built: no CUDA, no algorithm
         self.metrics = MetricsLogger()
-        probe = cfg.env_maker()()
-        obs_space, act_space = probe.observation_space, probe.action_space
-        probe.close()
+        if cfg.env is not None:
+            probe = cfg.env_maker()()
+            obs_space, act_space = probe.observation_space, probe.action_space
+            probe.close()
+        else:
+            # offline mode (reference offline algos): spaces come from the config
+            obs_space, act_space = cfg.observation_space, cfg.action_space
+            if obs_space is None or act_space is None:
+                raise ValueError(
+                    "offline algorithms need .environment(observation_space=..., action_space=...)"
+                )
         self.module_spec = RLModuleSpec(
             module_class=cfg.rl_module_class,
             observation_space=obs_space,
@@ -106,10 +111,11 @@ class Algorithm(Trainable):
             model_config=cfg.model_config,
         )
         self.learner_group = LearnerGroup(cfg, self.module_spec, self.learner_class)
-        self.env_runner_group = EnvRunnerGroup(cfg)
+        self.env_runner_group = EnvRunnerGroup(cfg) if cfg.env is not None else None
         # host-side module copy for connectors (GAE bootstrap values)
         self._module = self.module_spec.build()
-        self.env_runner_group.sync_weights(self.learner_group.get_weights())
+        if self.env_runner_group is not None:
+            self.env_runner_group.sync_weights(self.learner_group.get_weights())
 
     def step(self) -> Dict[str, Any]:
         return self.training_step()
@@ -122,11 +128,13 @@ class Algorithm(Trainable):
 
     def load_checkpoint(self, state: Any) -> None:
         self.learner_group.set_state(state["learner"])
-        self.env_runner_group.sync_weights(self.learner_group.get_weights())
+        if self.env_runner_group is not None:
+            self.env_runner_group.sync_weights(self.learner_group.get_weights())
 
     def cleanup(self) -> None:
         try:
-            self.env_runner_group.stop()
+            if self.env_runner_group is not None:
+                self.env_runner_group.stop()
         finally:
             self.learner_group.shutdown()
 
@@ -137,6 +145,8 @@ class Algorithm(Trainable):
         return self.learner_group.get_weights()
 
     def evaluate(self, num_timesteps: int = 1000) -> Dict[str, Any]:
+        if self.env_runner_group is None:
+            return {"evaluation": {"episode_return_mean": None}}
         eps = self.env_runner_group.sample(num_timesteps, explore=False)
         rets = [float(e["rewards"].sum()) for e in eps if e["terminated"] or e["truncated"]]
         return {"evaluation": {"episode_return_mean": float(np.mean(rets)) if rets else None}}

@@ -1,13 +1,14 @@
 """AlgorithmConfig: fluent builder (port of ray_tpu/rllib/algorithms/algorithm_config.py).
 
 Capability parity: reference rllib/algorithms/algorithm_config.py — .environment()/
-.training()/.env_runners()/.learners() chaining, build_algo(). The knobs PPO uses
-are carried, plus ``device``: the learner's device, the card unless "cpu" is
-asked for (``ray_tpu_torch.device.resolve_device``, no fallback).
+.training()/.env_runners()/.learners()/.offline_data() chaining, build_algo().
+The knobs the ported algorithms use are carried, plus ``device``: the
+learner's device, the card unless "cpu" is asked for
+(``ray_tpu_torch.device.resolve_device``, no fallback).
 
 Not ported yet, each raising NotImplementedError naming its ROADMAP item:
 ``num_learners > 1`` (A9b), ``decoupled_rollout(enabled=True)`` (A9c),
-``offline_data`` (A9f), ``multi_agent`` (A9g).
+``multi_agent`` (A9g).
 """
 from __future__ import annotations
 
@@ -40,23 +41,36 @@ class AlgorithmConfig:
         # module
         self.model_config: Dict[str, Any] = {}
         self.rl_module_class: Optional[type] = None
+        # offline (reference offline_data.py)
+        self.input_: Any = None  # newline-JSON / parquet path(s)
+        self.input_dataset: Any = None  # any object with take_all() -> row dicts
+        self.observation_space: Any = None  # offline mode: spaces given, no env probe
+        self.action_space: Any = None
         # misc
         self.seed: Optional[int] = 0
 
     # -- fluent sections (reference algorithm_config.py) -----------------------
     def environment(self, env=None, *, env_config: Optional[Dict] = None,
                     observation_space=None, action_space=None) -> "AlgorithmConfig":
-        if observation_space is not None or action_space is not None:
-            raise NotImplementedError(
-                "spaces without an env are the offline path, not ported yet (ROADMAP A9f)")
         if env is not None:
             self.env = env
         if env_config is not None:
             self.env_config = dict(env_config)
+        if observation_space is not None:
+            self.observation_space = observation_space
+        if action_space is not None:
+            self.action_space = action_space
         return self
 
-    def offline_data(self, **_kw) -> "AlgorithmConfig":
-        raise NotImplementedError("offline data is not ported yet (ROADMAP A9f)")
+    def offline_data(self, *, input_=None, dataset=None, **_compat) -> "AlgorithmConfig":
+        """Offline-RL input (reference AlgorithmConfig.offline_data / offline_data.py:30):
+        `input_` newline-JSON (``.json``) or parquet path(s), or `dataset`,
+        any object with ``take_all()``."""
+        if input_ is not None:
+            self.input_ = input_
+        if dataset is not None:
+            self.input_dataset = dataset
+        return self
 
     def env_runners(
         self,
@@ -147,7 +161,14 @@ class AlgorithmConfig:
         return make
 
     def copy(self) -> "AlgorithmConfig":
-        return copy.deepcopy(self)
+        # share the (possibly large, materialized) offline dataset by reference
+        ds, self.input_dataset = self.input_dataset, None
+        try:
+            new = copy.deepcopy(self)
+        finally:
+            self.input_dataset = ds
+        new.input_dataset = ds
+        return new
 
     def build_algo(self) -> "Algorithm":  # noqa: F821
         if self.algo_class is None:

@@ -18,6 +18,11 @@ until gathered), and the metrics are read back once per update. The JAX
 package runs that schedule as one jitted ``lax.scan``; here it is an eager
 loop, one forward, backward and optimizer update per minibatch.
 
+The off-policy learners (DQN, SAC, CQL) take one step on one whole batch
+instead (``_update_step``) and keep target networks as device tensors
+(``target_params``, synced by ``_sync_targets``); their state carries the
+targets too.
+
 Not ported yet: the multi-learner split path with its gradient allreduce
 (ROADMAP A9b) and the decoupled rollout plane's block path (A9c).
 """
@@ -59,6 +64,7 @@ class Learner:
         self.module = module_spec.build()
         self.device = resolve_device(getattr(config, "device", None))
         self.metrics: Dict[str, Any] = {}
+        self.target_params = None  # the off-policy learners' target networks
 
     def build(self) -> None:
         self._set_params(self.module.init_params(seed=self.config.seed or 0))
@@ -77,24 +83,46 @@ class Learner:
 
     @staticmethod
     def _cast_obs(batch):
-        """Cast OBS to f32 at the minibatch level: a uint8 frame batch stays
-        uint8 on the device until a minibatch is gathered from it."""
-        if Columns.OBS in batch:
-            batch = dict(batch)
-            batch[Columns.OBS] = batch[Columns.OBS].float()
+        """Cast OBS (and a replayed batch's next_obs) to f32 at the minibatch
+        level: a uint8 frame batch stays uint8 on the device until a
+        minibatch is gathered from it."""
+        batch = dict(batch)
+        for k in (Columns.OBS, "next_obs"):
+            if k in batch:
+                batch[k] = batch[k].float()
         return batch
 
-    def _step(self, mbatch: Dict[str, torch.Tensor]):
-        """One minibatch: loss, gradients, optax's clip and adam in place."""
+    def _upload(self, arrays: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+        """Numpy columns to the device, once. f64 columns (DiagGaussian's
+        sampled actions, offline rows' float lists) narrow to f32, as
+        jax.device_put narrows them with 64-bit mode off."""
+        return {k: torch.from_numpy(v.astype(np.float32) if v.dtype == np.float64 else v)
+                .to(self.device) for k, v in arrays.items()}
+
+    def _step(self, mbatch: Dict[str, torch.Tensor], *args):
+        """One minibatch: loss, gradients, optax's clip and adam in place.
+        `args` go to compute_losses after the batch (SAC's noise)."""
+        loss, aux, grads = self._grads(mbatch, *args)
+        self._apply_grads(grads)
+        return loss, aux
+
+    def _grads(self, mbatch: Dict[str, torch.Tensor], *args):
+        """The loss, its aux metrics (detached) and one gradient per leaf."""
         with torch.enable_grad():
-            loss, aux = self.compute_losses(self.params, self._cast_obs(mbatch))
-            grads = list(torch.autograd.grad(loss, self._leaves))
+            loss, aux = self.compute_losses(self.params, self._cast_obs(mbatch), *args)
+            # a leaf the loss never reads (DQN's epsilon) gets a zero
+            # gradient, as jax.grad gives it, and adam leaves it alone
+            grads = [torch.zeros_like(p) if g is None else g for p, g in zip(
+                self._leaves, torch.autograd.grad(loss, self._leaves, allow_unused=True))]
+        return loss.detach(), {k: v.detach() for k, v in aux.items()}, grads
+
+    def _apply_grads(self, grads: List[torch.Tensor]) -> None:
+        """optax's clip and adam in place (the grads may be clipped in place)."""
         if self.config.grad_clip:
             clip_by_global_norm_(grads, self.config.grad_clip)
         self.opt_state = adamw_update_(
             grads, self.opt_state, self._leaves, learning_rate=lambda _: self.config.lr,
             b1=ADAM_B1, b2=ADAM_B2, eps=ADAM_EPS, weight_decay=0.0)
-        return loss.detach(), {k: v.detach() for k, v in aux.items()}
 
     # -- update ---------------------------------------------------------------
     def update(self, batch: Dict[str, Any]) -> Dict[str, Any]:
@@ -112,10 +140,7 @@ class Learner:
         idx = np.stack([
             rng.permutation(n)[: (n // mb) * mb].reshape(-1, mb)
             for _ in range(self.config.num_epochs)]).reshape(-1, mb)
-        # f64 columns (DiagGaussian.sample_np's actions) narrow to f32, as
-        # jax.device_put narrows them with 64-bit mode off
-        on_dev = {k: torch.from_numpy(v.astype(np.float32) if v.dtype == np.float64 else v)
-                  .to(self.device) for k, v in arrays.items()}
+        on_dev = self._upload(arrays)
         idx_dev = torch.from_numpy(idx).to(self.device)
         losses: List[torch.Tensor] = []
         aux: Dict[str, torch.Tensor] = {}
@@ -131,6 +156,25 @@ class Learner:
         }
         return self.metrics
 
+    def _update_step(self, batch: Dict[str, np.ndarray], *args):
+        """One step on one whole batch, uploaded once, with no minibatch loop
+        (the off-policy learners' update); returns the loss and the aux
+        metrics, still on the device."""
+        return self._step(self._upload(batch), *args)
+
+    def _sync_targets(self, tau: float) -> None:
+        """The target networks from the parameters of the same names, in one
+        foreach pass on the device: a hard copy at tau 1, else polyak,
+        t = (1 - tau) t + tau p."""
+        targets = tree_leaves(self.target_params)
+        sources = tree_leaves({k: self.params[k] for k in self.target_params})
+        with torch.no_grad():
+            if tau >= 1.0:
+                torch._foreach_copy_(targets, sources)
+            else:
+                torch._foreach_mul_(targets, 1.0 - tau)
+                torch._foreach_add_(targets, sources, alpha=tau)
+
     def update_from_blocks(self, handles: List[Any]) -> Dict[str, Any]:
         raise NotImplementedError(
             "the decoupled rollout plane's block update is not ported yet (ROADMAP A9c)")
@@ -138,16 +182,23 @@ class Learner:
     # -- state ----------------------------------------------------------------
     def get_state(self) -> Dict[str, Any]:
         """Numpy trees: params, and the optimizer's count, mu and nu (the
-        leaves of optax's ScaleByAdamState; the chain's other states are empty)."""
-        return {"params": to_numpy(self.params),
-                "opt_state": {"count": np.int32(self.opt_state.count),
-                              "mu": to_numpy(tree_unflatten(self.params, self.opt_state.mu)),
-                              "nu": to_numpy(tree_unflatten(self.params, self.opt_state.nu))}}
+        leaves of optax's ScaleByAdamState; the chain's other states are
+        empty); and the target networks where the learner has them."""
+        state = {"params": to_numpy(self.params),
+                 "opt_state": {"count": np.int32(self.opt_state.count),
+                               "mu": to_numpy(tree_unflatten(self.params, self.opt_state.mu)),
+                               "nu": to_numpy(tree_unflatten(self.params, self.opt_state.nu))}}
+        if self.target_params is not None:
+            state["target_params"] = to_numpy(self.target_params)
+        return state
 
     def set_state(self, state: Dict[str, Any]) -> None:
         """Takes get_state's form, or the JAX learner's (its optax state as
-        numpy or jax arrays). A state without opt_state keeps the optimizer's."""
+        numpy or jax arrays). A state without opt_state keeps the optimizer's,
+        one without target_params the targets."""
         self._set_params(state["params"])
+        if state.get("target_params") is not None:
+            self.target_params = params_from_numpy(state["target_params"], self.device)
         opt = state.get("opt_state")
         if opt is None:
             return

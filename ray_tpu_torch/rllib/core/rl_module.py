@@ -7,7 +7,8 @@ GAE bootstrap) and on the learner's device (torch, ``apply_torch``).
 ``params_from_numpy`` / ``to_numpy`` carry weights and states between the
 two packages unchanged.
 
-``SACModule`` and ``DQNModule`` come with their algorithms (ROADMAP A9e).
+Spaces are told apart without gymnasium: a discrete space has an integer
+``n`` (``is_discrete``), a Box has ``low``, ``high`` and ``shape``.
 """
 from __future__ import annotations
 
@@ -19,7 +20,8 @@ import torch
 
 from ray_tpu_torch.device import resolve_device
 
-from .distributions import Categorical, DiagGaussian
+from .distributions import (LOG_STD_MAX, LOG_STD_MIN, Categorical, DiagGaussian,
+                            EpsilonGreedyQ, SquashedGaussian, squashed_logp_from_u_torch)
 
 Columns = type("Columns", (), {
     "OBS": "obs",
@@ -163,6 +165,13 @@ def is_discrete(space) -> bool:
     return isinstance(getattr(space, "n", None), (int, np.integer))
 
 
+def is_box(space) -> bool:
+    """A Box has bounds and a shape (gymnasium's Box does); a discrete space
+    is no Box."""
+    return not is_discrete(space) and all(
+        hasattr(space, k) for k in ("low", "high", "shape"))
+
+
 class MLPModule(RLModule):
     """Default policy+value MLP (reference catalog default: separate pi/vf trunks)."""
 
@@ -201,3 +210,143 @@ class MLPModule(RLModule):
         logits = _mlp_apply_torch(params["pi"], obs)
         vf = _mlp_apply_torch(params["vf"], obs)[..., 0]
         return {Columns.ACTION_DIST_INPUTS: logits, Columns.VF_PREDS: vf}
+
+
+class SACModule(RLModule):
+    """Squashed-Gaussian policy + twin Q critics for continuous control (SAC).
+
+    Params: {"pi": mlp(obs -> 2A), "q1"/"q2": mlp([obs, act] -> 1),
+    "log_alpha": scalar temperature (auto-tuned by the learner)}.
+    """
+
+    def __init__(self, observation_space, action_space, model_config):
+        super().__init__(observation_space, action_space, model_config)
+        if not is_box(action_space):
+            raise ValueError("SACModule requires a Box action space")
+        self.hiddens = tuple(model_config.get("fcnet_hiddens", (64, 64)))
+        self.obs_dim = int(np.prod(observation_space.shape))
+        self.act_dim = int(np.prod(action_space.shape))
+        self.low = np.asarray(action_space.low, np.float32).reshape(-1)
+        self.high = np.asarray(action_space.high, np.float32).reshape(-1)
+        if not (np.isfinite(self.low).all() and np.isfinite(self.high).all()):
+            raise ValueError(
+                "SACModule requires finite action bounds (tanh squashing scales to "
+                "[low, high]); wrap the env with a bounded Box action space")
+        self._bounds: Dict[torch.device, Any] = {}
+
+    @property
+    def action_dist_cls(self):
+        return SquashedGaussian
+
+    def init_params(self, seed: int = 0):
+        rng = np.random.default_rng(seed)
+        return {
+            "pi": _mlp_init(rng, (self.obs_dim, *self.hiddens, 2 * self.act_dim)),
+            "q1": _mlp_init(rng, (self.obs_dim + self.act_dim, *self.hiddens, 1)),
+            "q2": _mlp_init(rng, (self.obs_dim + self.act_dim, *self.hiddens, 1)),
+            "log_alpha": np.float32(0.0),
+        }
+
+    def _bounds_np(self, b):
+        return (np.broadcast_to(self.low, (b, self.act_dim)),
+                np.broadcast_to(self.high, (b, self.act_dim)))
+
+    def bounds_torch(self, device):
+        """(low, high) as [A] f32 tensors on `device`, made once per device."""
+        device = torch.device(device)
+        if device not in self._bounds:
+            self._bounds[device] = (torch.from_numpy(self.low).to(device),
+                                    torch.from_numpy(self.high).to(device))
+        return self._bounds[device]
+
+    def apply_np(self, params, obs):
+        obs = obs.reshape(len(obs), -1).astype(np.float32)
+        out = _mlp_apply_np(params["pi"], obs)
+        low, high = self._bounds_np(len(obs))
+        return {
+            Columns.ACTION_DIST_INPUTS: np.concatenate([out, low, high], axis=1),
+            Columns.VF_PREDS: np.zeros(len(obs), np.float32),
+        }
+
+    def apply_torch(self, params, obs):
+        obs = obs.reshape(len(obs), -1)
+        out = _mlp_apply_torch(params["pi"], obs)
+        low, high = self.bounds_torch(out.device)
+        b = out.shape[0]
+        return {
+            Columns.ACTION_DIST_INPUTS: torch.cat(
+                [out, low.expand(b, -1), high.expand(b, -1)], dim=1),
+            Columns.VF_PREDS: torch.zeros(b, dtype=torch.float32, device=out.device),
+        }
+
+    # -- learner-side pieces -----------------------------------------------------
+    def pi_torch(self, params, obs):
+        """(mu, log_std) of the pre-squash Gaussian."""
+        out = _mlp_apply_torch(params["pi"], obs.reshape(len(obs), -1))
+        mu, log_std = out[..., : self.act_dim], out[..., self.act_dim:]
+        return mu, torch.clamp(log_std, LOG_STD_MIN, LOG_STD_MAX)
+
+    def sample_action_torch(self, params, obs, noise):
+        """Reparameterized squashed sample + its log-prob (for actor/critic
+        losses). `noise` is the standard normal draw, [len(obs), A]: the
+        caller owns the random numbers (the JAX package's jax.random key)."""
+        mu, log_std = self.pi_torch(params, obs)
+        u = mu + torch.exp(log_std) * noise
+        t = torch.tanh(u)
+        low, high = self.bounds_torch(mu.device)
+        action = low + (t + 1.0) * 0.5 * (high - low)
+        return action, squashed_logp_from_u_torch(u, t, mu, log_std, low, high)
+
+    def q_torch(self, params, which, obs, actions):
+        x = torch.cat([obs.reshape(len(obs), -1), actions], dim=-1)
+        return _mlp_apply_torch(params[which], x)[..., 0]
+
+
+class DQNModule(RLModule):
+    """Q-network for discrete actions (reference dqn_rainbow_rl_module).
+
+    Params carry a non-trained "epsilon" leaf: its task-loss gradient is exactly
+    zero (loss never reads it), so the optimizer leaves it alone, and the DQN
+    algorithm overwrites it per the schedule before syncing weights to runners —
+    exploration state rides the ordinary weight-sync path."""
+
+    def __init__(self, observation_space, action_space, model_config):
+        super().__init__(observation_space, action_space, model_config)
+        if not is_discrete(action_space):
+            raise ValueError("DQNModule requires a Discrete action space")
+        self.hiddens = tuple(model_config.get("fcnet_hiddens", (64, 64)))
+        self.obs_dim = int(np.prod(observation_space.shape))
+        self.num_actions = int(action_space.n)
+
+    @property
+    def action_dist_cls(self):
+        return EpsilonGreedyQ
+
+    def init_params(self, seed: int = 0):
+        rng = np.random.default_rng(seed)
+        q = _mlp_init(rng, (self.obs_dim, *self.hiddens, self.num_actions))
+        return {"q": q, "epsilon": np.float32(1.0)}
+
+    def q_values_np(self, params, obs: np.ndarray) -> np.ndarray:
+        obs = obs.reshape(len(obs), -1).astype(np.float32)
+        return _mlp_apply_np(params["q"], obs)
+
+    def q_values_torch(self, params, obs):
+        obs = obs.reshape(len(obs), -1)
+        return _mlp_apply_torch(params["q"], obs)
+
+    def apply_np(self, params, obs):
+        q = self.q_values_np(params, obs)
+        eps = np.full((len(q), 1), float(params["epsilon"]), np.float32)
+        return {
+            Columns.ACTION_DIST_INPUTS: np.concatenate([q, eps], axis=1),
+            Columns.VF_PREDS: q.max(axis=-1),
+        }
+
+    def apply_torch(self, params, obs):
+        q = self.q_values_torch(params, obs)
+        eps = params["epsilon"].expand(q.shape[0], 1)
+        return {
+            Columns.ACTION_DIST_INPUTS: torch.cat([q, eps], dim=1),
+            Columns.VF_PREDS: q.max(dim=-1).values,
+        }

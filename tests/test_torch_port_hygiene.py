@@ -111,17 +111,52 @@ def test_the_import_walk_sees_lazy_imports():
         ("ray_tpu", True), ("importlib", True), ("jax.numpy", True)]
 
 
+class _RLSpace:
+    def __init__(self, shape=(), n=None, low=None, high=None):
+        self.shape = shape
+        if n is not None:
+            self.n = n
+        if low is not None:
+            self.low, self.high = low, high
+
+
+class _NoRows:
+    """A dataset that must not be read: the device check comes first."""
+
+    def take_all(self):
+        raise AssertionError("read before the device check")
+
+
+class _RLEnv:
+    """An env that must not be built: the device check comes first."""
+
+    def __init__(self, config=None):
+        raise AssertionError("built before the device check")
+
+
 def _entry_point(name):
     from ray_tpu_torch.device import resolve_device
     from ray_tpu_torch.llm import LLMConfig, LLMEngineStage, LLMServer, TorchLLMEngine
     from ray_tpu_torch.llm import model_runner, paged
     from ray_tpu_torch.models import config, llama
 
-    from ray_tpu_torch import train
+    from ray_tpu_torch import rllib, train
+    from ray_tpu_torch.rllib.core.rl_module import DQNModule
 
     tiny = config.get_config("byte-tiny")
     tx = train.make_optimizer()
+    box = _RLSpace((3,), low=[-1.0, -1.0], high=[1.0, 1.0])
     return {"resolve_device": lambda: resolve_device(),
+            "DQN": lambda: rllib.DQNConfig().environment(_RLEnv).build_algo(),
+            "SAC": lambda: rllib.SACConfig().environment(_RLEnv).build_algo(),
+            "CQL": lambda: rllib.CQLConfig().environment(
+                observation_space=box, action_space=box).offline_data(
+                dataset=_NoRows()).build_algo(),
+            "BC": lambda: rllib.BCConfig().environment(
+                observation_space=box, action_space=_RLSpace(n=2)).offline_data(
+                input_="rows.json").build_algo(),
+            "DQNLearner": lambda: rllib.DQNLearner(rllib.DQNConfig(), rllib.RLModuleSpec(
+                module_class=DQNModule, observation_space=box, action_space=_RLSpace(n=2))),
             "TorchLLMEngine": lambda: TorchLLMEngine(LLMConfig()),
             "TorchLLMEngine-int8": lambda: TorchLLMEngine(LLMConfig(quantization="int8")),
             "TorchLLMEngine-spec": lambda: TorchLLMEngine(LLMConfig(num_speculative_tokens=2)),
@@ -141,7 +176,7 @@ def _entry_point(name):
                                   "LLMEngineStage",
                                   "llama.init", "init_state", "init_paged_state",
                                   "train.init_state",
-                                  "make_train_step"])
+                                  "make_train_step", "DQN", "SAC", "CQL", "BC", "DQNLearner"])
 def test_entry_points_default_to_cuda_and_refuse_a_silent_cpu(monkeypatch, name):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):

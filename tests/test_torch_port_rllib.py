@@ -571,15 +571,9 @@ def test_a_string_env_without_gymnasium_says_so(monkeypatch):
 @pytest.mark.parametrize("call,item", [
     (lambda: rllib.PPOConfig().decoupled_rollout(enabled=True), "A9c"),
     (lambda: rllib.PPOConfig().learners(num_learners=2), "A9b"),
-    (lambda: rllib.PPOConfig().offline_data(input_="x"), "A9f"),
-    (lambda: rllib.PPOConfig().environment(observation_space=_Space((3,))), "A9f"),
     (lambda: rllib.PPOConfig().multi_agent(policies=["p"]), "A9g"),
     (lambda: rllib.IMPALAConfig(), "A9d"),
     (lambda: rllib.APPOConfig(), "A9d"),
-    (lambda: rllib.DQNConfig(), "A9e"),
-    (lambda: rllib.SACConfig(), "A9e"),
-    (lambda: rllib.BCConfig(), "A9f"),
-    (lambda: rllib.CQLConfig(), "A9f"),
     (lambda: rllib.MultiAgentPPOConfig(), "A9g"),
     (lambda: rllib.DreamerV3Config(), "A9h"),
 ])
