@@ -169,6 +169,28 @@ Phases, each fatal on failure (the script exits non-zero and prints no result):
      pole held > 100 steps), MARWIL from a newline-JSON file it writes, CQL
      on 8 x 50 random Pendulum transitions with a checkpoint round trip that
      must be bit-equal;
+  M. after O, RLlib's multi-agent PPO (A9g), no flash kernel: M1, a
+     MultiAgentLearner with modules p0 and p1, each at R1's geometry, held
+     per module to its CPU run as R1 is, then ms per two-module update and
+     the busy share of one; M2, tests/test_multi_agent.py:45-63 uncut (2
+     CartPole agents through make_multi_agent, a shared policy, 2 runners,
+     batch 1024, 6 epochs, 8 iterations), which must learn by that test's
+     bar, agent steps/s and the learner's share; M3, :67-88 uncut
+     (policies p0 and p1): per-module metric keys, a checkpoint round trip
+     bit-equal, p0 and p1 apart;
+  D. after M, RLlib's DreamerV3 (A9h), no flash kernel: D1, the learner at
+     the JAX package's defaults (deter 128, stoch 8 x 8, 16 x 16, horizon
+     15) on the card against the CPU, fed the same Gumbel noise with the
+     CPU held to the card's picks: the world model's, the actor's and the
+     critic's gradients and the state after the update (the CPU's three
+     optimizers fed the card's gradients, the EMA critic included) within
+     1e-4 of max|ref| per leaf, ret_range within 1e-5; the picks that differ
+     and the smallest top-two margin; ms per update over 20 and the busy
+     share of one; D2, tests/test_dreamerv3.py:87-110 uncut on the numpy
+     CartPole (at most 45 iterations, best return >= 30), env steps/s,
+     updates/s and the learner's share, then a checkpoint loaded into a
+     second algorithm, bit-equal; D3, :52-66, the world-model loss falls
+     over 6 iterations;
  10. a JSON line of the kernels, the card's name and power limit, and last the
      line {"ok": true, "device": {...}}.
 With ``--json PATH`` a copy of every number is written to PATH as JSON.
@@ -3130,11 +3152,12 @@ def _timed_learner(algo):
     return spent
 
 
-def _on_card(torch, algo, dev, tag):
-    learner = algo.learner_group.learners[0]
+def _on_card(torch, learners, dev, tag):
     kind = torch.device(dev).type
-    if learner.device.type != kind or not all(p.device.type == kind for p in learner._leaves):
-        raise SystemExit(f"{tag}: the learner is not on the card")
+    for learner in learners:
+        if learner.device.type != kind or not all(
+                p.device.type == kind for p in learner._leaves):
+            raise SystemExit(f"{tag}: the learner is not on the card")
 
 
 def rl_dqn_path(torch, card, dev="cuda"):
@@ -3155,7 +3178,7 @@ def rl_dqn_path(torch, card, dev="cuda"):
                       sample_timesteps_per_iteration=g["steps"])
             .learners(device=dev).build_algo())
     try:
-        _on_card(torch, algo, dev, "O2")
+        _on_card(torch, algo.learner_group.learners, dev, "O2")
         spent = _timed_learner(algo)
         first, best, returns = None, -np.inf, []
         t0 = time.perf_counter()
@@ -3195,7 +3218,7 @@ def rl_dqn_path(torch, card, dev="cuda"):
                       sample_timesteps_per_iteration=p["steps"])
             .learners(device=dev).build_algo())
     try:
-        _on_card(torch, algo, dev, "O2 prioritized")
+        _on_card(torch, algo.learner_group.learners, dev, "O2 prioritized")
         for _ in range(p["iters"]):
             result = algo.step()
         prios = algo.buffer._priorities[: len(algo.buffer)]
@@ -3226,7 +3249,7 @@ def rl_sac_path(torch, card, dev="cuda"):
                       sample_timesteps_per_iteration=g["steps"])
             .learners(device=dev).build_algo())
     try:
-        _on_card(torch, algo, dev, "O3")
+        _on_card(torch, algo.learner_group.learners, dev, "O3")
         spent = _timed_learner(algo)
         t0 = time.perf_counter()
         for _ in range(g["iters"]):
@@ -3307,7 +3330,7 @@ def rl_offline_path(torch, card, dev="cuda"):
             .training(lr=1e-3, train_batch_size=512, num_updates_per_iteration=40)
             .learners(device=dev).debugging(seed=0).build_algo())
     try:
-        _on_card(torch, algo, dev, "O4 BC")
+        _on_card(torch, algo.learner_group.learners, dev, "O4 BC")
         t0 = time.perf_counter()
         for _ in range(4):
             result = algo.train()
@@ -3343,7 +3366,7 @@ def rl_offline_path(torch, card, dev="cuda"):
                 .training(beta=1.0, train_batch_size=256, num_updates_per_iteration=5)
                 .learners(device=dev).debugging(seed=0).build_algo())
         try:
-            _on_card(torch, algo, dev, "O4 MARWIL")
+            _on_card(torch, algo.learner_group.learners, dev, "O4 MARWIL")
             result = algo.train()
             n_rows = len(algo.offline_data)
         finally:
@@ -3369,7 +3392,7 @@ def rl_offline_path(torch, card, dev="cuda"):
 
     algo, other = cql(), cql()
     try:
-        _on_card(torch, algo, dev, "O4 CQL")
+        _on_card(torch, algo.learner_group.learners, dev, "O4 CQL")
         result = algo.train()  # covers bc_iters warm-start then Q-based actor
         state = algo.save_checkpoint()
         other.load_checkpoint(state)
@@ -3407,6 +3430,470 @@ def rl_offpolicy_path(torch, fa, card, dev="cuda"):
     if any(out["flash_launches"].values()):
         raise SystemExit(f"O: an off-policy algorithm launched a flash kernel: "
                          f"{out['flash_launches']}")
+    return out
+
+
+# phase M: RLlib multi-agent PPO on the card (A9g). M1 holds a two-module
+# MultiAgentLearner at R1's geometry (RL_LEARNER) to its CPU run per module;
+# M2 and M3 are tests/test_multi_agent.py:45-63 and :67-88 uncut, on the
+# numpy CartPole through make_multi_agent.
+RL_MA_SHARED = dict(agents=2, runners=2, fragment=64, lr=3e-4, batch=1024, minibatch=256,
+                    epochs=6, entropy_coeff=0.01, iters=8)
+RL_MA_SEPARATE = dict(agents=2, runners=1, fragment=32, batch=256, minibatch=64, epochs=1)
+# phase D: RLlib DreamerV3 on the card (A9h). D1 is the learner at the JAX
+# package's defaults (dreamerv3.py:74-102) on CartPole's obs 4 and 2 actions;
+# D2 and D3 are tests/test_dreamerv3.py:13-27,87-110 and :52-82 uncut.
+RL_DREAMER_TIMED = 20
+RL_DREAMER_TOL = 1e-4  # card against CPU, f32, per leaf of max|ref|
+RL_DREAMER_RET_TOL = 1e-5  # ret_range, relative
+RL_DREAMER_TINY = dict(deter_size=128, hidden=128, embed_size=64, stoch_groups=8,
+                       stoch_classes=8, batch_size_seqs=8, seq_len=24,
+                       num_updates_per_iteration=12, sample_timesteps_per_iteration=300,
+                       num_steps_sampled_before_learning_starts=300, imag_horizon=15,
+                       entropy_coef=1e-2)
+RL_DREAMER_ITERS = 45  # D2's most iterations (tests/test_dreamerv3.py:95)
+RL_DREAMER_WM_ITERS = 6  # D3: iterations over which the world-model loss must fall
+
+
+def rl_ma_learner_path(torch, card, r1_update_ms=None, dev="cuda"):
+    """M1: a MultiAgentLearner with modules p0 and p1, each at R1's geometry,
+    on the card: each module's update against its CPU run (update_against_cpu),
+    then RL_LEARNER['timed'] two-module updates timed on the host clock and one
+    under torch.profiler."""
+    from ray_tpu_torch.rllib import MultiAgentLearner, PPOConfig, PPOLearner
+    from ray_tpu_torch.rllib.core.rl_module import Columns, RLModuleSpec
+
+    g = RL_LEARNER
+    spec = RLModuleSpec(observation_space=Box((g["obs_dim"],)),
+                        action_space=Discrete(g["n_actions"]),
+                        model_config={"fcnet_hiddens": g["hiddens"]})
+
+    def learner(device):
+        cfg = (PPOConfig().training(lr=3e-4, train_batch_size=g["batch"],
+                                    minibatch_size=g["minibatch"], num_epochs=g["epochs"])
+               .learners(device=device).debugging(seed=0))
+        cfg.base_learner_class = PPOLearner
+        out = MultiAgentLearner(cfg, {"p0": spec, "p1": spec})
+        out.build()
+        return out
+
+    n = g["batch"]
+    batches = {}
+    for i, mid in enumerate(("p0", "p1")):
+        rng = np.random.default_rng(i)
+        batches[mid] = {
+            Columns.OBS: rng.standard_normal((n, g["obs_dim"])).astype(np.float32),
+            Columns.ACTIONS: rng.integers(0, g["n_actions"], n).astype(np.int32),
+            Columns.ACTION_LOGP: np.full((n,), -np.log(g["n_actions"]), np.float32),
+            Columns.ADVANTAGES: rng.standard_normal(n).astype(np.float32),
+            Columns.VALUE_TARGETS: rng.standard_normal(n).astype(np.float32)}
+    card_l, cpu_l = learner(dev), learner("cpu")
+    _on_card(torch, card_l._subs.values(), dev, "M1")
+    out = {"modules": {}}
+    for mid in ("p0", "p1"):
+        cmp = update_against_cpu(card_l._subs[mid], cpu_l._subs[mid], batches[mid])
+        print(f"  M1 module {mid}: one update on the card against the CPU: worst leaf of "
+              f"max|ref| over {cmp['steps']} steps' gradients {cmp['grad_err']:.3e}, of the "
+              f"state after it {cmp['state_err']:.3e} (limit {RL_LEARNER_TOL}); total_loss "
+              f"{cmp['m_card']['total_loss']:.6f} vs {cmp['m_cpu']['total_loss']:.6f}",
+              flush=True)
+        if (max(cmp["grad_err"], cmp["state_err"]) > RL_LEARNER_TOL
+                or not all(math.isfinite(v) for v in cmp["m_card"].values())):
+            raise SystemExit(f"M1 {mid}: the card's update differs from the CPU's: {cmp}")
+        out["modules"][mid] = dict(max_grad_err=cmp["grad_err"], max_leaf_err=cmp["state_err"],
+                                   steps=cmp["steps"])
+    metrics = card_l.update(batches)  # warm
+    if sorted(metrics) != ["p0", "p1"]:
+        raise SystemExit(f"M1: the update returned modules {sorted(metrics)}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(g["timed"]):
+        card_l.update(batches)  # each sub-update ends with its read-back
+    dt = time.perf_counter() - t0
+    update_ms = dt / g["timed"] * 1e3
+    steps = 2 * (n // g["minibatch"]) * g["epochs"]
+    out.update(update_ms=update_ms, minibatch_update_ms=update_ms / steps,
+               updates_per_s=g["timed"] / dt, r1_minibatch_update_ms=r1_update_ms)
+    ratio = "" if not r1_update_ms else \
+        f", {update_ms / steps / r1_update_ms:.3f}x R1's {r1_update_ms:.3f} ms"
+    print(f"  M1 two-module update: {update_ms:.3f} ms ({steps} minibatch steps, "
+          f"{update_ms / steps:.3f} ms each{ratio}) over {g['timed']} updates [{card}]",
+          flush=True)
+    out["profile"] = profile_once(torch, "M1 one two-module update",
+                                  lambda: card_l.update(batches))
+    return out
+
+
+def _ma_shared_config(dev):
+    from ray_tpu_torch.rllib import MultiAgentPPOConfig, make_multi_agent
+
+    g = RL_MA_SHARED
+    return (MultiAgentPPOConfig()
+            .environment(make_multi_agent(CartPole), env_config={"num_agents": g["agents"]})
+            .multi_agent(policies=["shared"], policy_mapping_fn=lambda aid: "shared")
+            .env_runners(num_env_runners=g["runners"], rollout_fragment_length=g["fragment"])
+            .training(lr=g["lr"], train_batch_size=g["batch"], minibatch_size=g["minibatch"],
+                      num_epochs=g["epochs"], entropy_coeff=g["entropy_coeff"])
+            .learners(device=dev).debugging(seed=0))
+
+
+def rl_ma_shared_path(torch, card, dev="cuda"):
+    """M2: tests/test_multi_agent.py:45-63 uncut: 2 CartPole agents on one
+    shared policy, 8 iterations; it must learn by that test's bar."""
+    g = RL_MA_SHARED
+    algo = _ma_shared_config(dev).build_algo()
+    try:
+        _on_card(torch, algo.learner_group.learners[0]._subs.values(), dev, "M2")
+        spent = _timed_learner(algo)
+        returns, trained = [], 0
+        t0 = time.perf_counter()
+        for _ in range(g["iters"]):
+            result = algo.train()
+            returns.append(result.get("episode_return_mean") or 0.0)
+            trained += result["num_env_steps_trained"]
+        dt = time.perf_counter() - t0
+    finally:
+        algo.stop()
+    out = dict(iters=g["iters"], wall_s=dt, agent_steps=trained,
+               agent_steps_per_s=trained / dt, learner_s=spent["s"],
+               learner_share=spent["s"] / dt, iteration_ms=dt / g["iters"] * 1e3,
+               returns=returns, settings=dict(g))
+    print(f"  M2 multi-agent PPO, shared policy: {g['iters']} iterations in {dt:.3f} s: "
+          f"{trained / dt:.1f} agent steps/s, learner {100 * out['learner_share']:.1f}% of an "
+          f"iteration ({out['iteration_ms']:.1f} ms) [{card}]", flush=True)
+    print(f"  M2 episode_return_mean by iteration: {[round(r, 2) for r in returns]}",
+          flush=True)
+    if not max(returns[2:]) > returns[0] + 20:
+        raise SystemExit(f"M2: the shared policy did not learn by tests/test_multi_agent.py's "
+                         f"bar: {returns}")
+    return out
+
+
+def rl_ma_separate_path(torch, card, dev="cuda"):
+    """M3: tests/test_multi_agent.py:67-88 uncut: policies p0 and p1, the
+    "{mid}/..." metrics, a checkpoint round trip bit for bit, p0 and p1 apart."""
+    from ray_tpu_torch.rllib import MultiAgentPPOConfig, make_multi_agent
+    from ray_tpu_torch.rllib.core.rl_module import tree_leaves
+
+    g = RL_MA_SEPARATE
+    algo = (MultiAgentPPOConfig()
+            .environment(make_multi_agent(CartPole), env_config={"num_agents": g["agents"]})
+            .multi_agent(policies=["p0", "p1"], policy_mapping_fn=lambda aid: f"p{aid}")
+            .env_runners(num_env_runners=g["runners"], rollout_fragment_length=g["fragment"])
+            .training(train_batch_size=g["batch"], minibatch_size=g["minibatch"],
+                      num_epochs=g["epochs"])
+            .learners(device=dev).debugging(seed=0).build_algo())
+    try:
+        _on_card(torch, algo.learner_group.learners[0]._subs.values(), dev, "M3")
+        result = algo.train()
+        keys = {mid: sorted(k for k in result if k.startswith(f"{mid}/")) for mid in ("p0", "p1")}
+        state = algo.save_checkpoint()
+        w_before = algo.get_weights()
+        algo.train()
+        algo.load_checkpoint(state)
+        w_after = algo.get_weights()
+        restored = all(np.array_equal(a, b) for a, b in zip(tree_leaves(w_after),
+                                                            tree_leaves(w_before)))
+        apart = not np.allclose(w_after["p0"]["pi"][0]["w"], w_after["p1"]["pi"][0]["w"])
+    finally:
+        algo.stop()
+    print(f"  M3 separate policies: metric keys {keys['p0'][:3]}... and {keys['p1'][:3]}...; "
+          f"checkpoint restored bit for bit: {restored}; p0 and p1 apart: {apart}", flush=True)
+    if not (keys["p0"] and keys["p1"] and restored and apart):
+        raise SystemExit(f"M3: keys {keys}, restored {restored}, apart {apart}")
+    return dict(metric_keys=keys, restored=restored, apart=apart, settings=dict(g))
+
+
+def rl_multi_agent_path(torch, fa, card, r1_update_ms=None, dev="cuda"):
+    """Phase M: M1, M2 and M3; no flash kernel may launch."""
+    t0 = time.perf_counter()
+    fa.reset_launch_count()
+    out = {"learner": rl_ma_learner_path(torch, card, r1_update_ms, dev),
+           "shared": rl_ma_shared_path(torch, card, dev),
+           "separate": rl_ma_separate_path(torch, card, dev)}
+    out["flash_launches"] = {k: fa.launch_count(k) for k in fa.KERNELS}
+    out["wall_s"] = time.perf_counter() - t0
+    print(f"  phase M took {out['wall_s']:.1f} s; flash launches {out['flash_launches']}",
+          flush=True)
+    if any(out["flash_launches"].values()):
+        raise SystemExit(f"M: multi-agent PPO launched a flash kernel: {out['flash_launches']}")
+    return out
+
+
+def _dreamer_learner(dev):
+    from ray_tpu_torch.rllib import DreamerV3Config, DreamerV3Learner
+    from ray_tpu_torch.rllib.core.rl_module import RLModuleSpec
+
+    learner = DreamerV3Learner(DreamerV3Config().learners(device=dev).debugging(seed=0),
+                               RLModuleSpec(observation_space=Box((4,)),
+                                            action_space=Discrete(2)))
+    learner.build()
+    return learner
+
+
+def _dreamer_batch(cfg, seed=0):
+    """A replayed batch of the learner's shape from chip_smoke's CartPole under
+    a random policy: 40 episodes through the stream buffer."""
+    from ray_tpu_torch.rllib.algorithms.dreamerv3 import _StreamBuffer
+
+    rng = np.random.default_rng(seed)
+    env, eps = CartPole(), []
+    for i in range(40):
+        obs = [env.reset(seed=seed * 1000 + i)[0]]
+        acts, rews, term, trunc = [], [], False, False
+        while not (term or trunc):
+            acts.append(int(rng.integers(0, 2)))
+            o, r, term, trunc, _ = env.step(acts[-1])
+            obs.append(o)
+            rews.append(r)
+        eps.append({"obs": np.stack(obs[:-1]), "next_obs_last": obs[-1],
+                    "actions": np.array(acts), "rewards": np.array(rews, np.float32),
+                    "terminated": term, "truncated": trunc})
+    buf = _StreamBuffer(10_000, 4)
+    buf.add_episodes(eps)
+    return buf.sample(cfg.batch_size_seqs, cfg.seq_len, rng)
+
+
+def dreamer_update_against_cpu(torch, card_l, cpu_l, batch):
+    """`update(batch)` on the card's DreamerV3 learner, then on the CPU's, fed
+    the same Gumbel noise. The CPU's world-model and imagination draws are held
+    to the card's picks (a near tie may flip a pick, after which the
+    recurrences part); each of its three optimizers takes the card's gradients.
+    Returns the worst per-leaf error (of max|ref|) of the card's world-model,
+    actor and critic gradients against the CPU's own at the same inputs; the
+    same of the state after the update (params, critic_ema, the three
+    optimizers' moments; counts equal); ret_range's relative error; and the
+    picks where the CPU, on the same history, would pick otherwise, with the
+    smallest top-two margin of any pick and of those that differ."""
+    noise = cpu_l.draw_noise(batch["actions"].shape[0], batch["actions"].shape[1])
+    card_noise = {k: v.to(card_l.device) for k, v in noise.items()}
+    cpu_l.draw_noise = lambda b, length: noise
+    card_l.draw_noise = lambda b, length: card_noise
+    card, errs, picks = {}, {}, {"total": 0, "differ": 0, "min_margin": math.inf,
+                                 "min_margin_differ": None}
+
+    def count(scores, held):
+        top2 = torch.topk(scores, 2, dim=-1).values
+        margin = top2[..., 0] - top2[..., 1]
+        differ = scores.argmax(-1) != held
+        picks["total"] += held.numel()
+        picks["differ"] += int(differ.sum())
+        picks["min_margin"] = min(picks["min_margin"], float(margin.min()))
+        if differ.any():
+            picks["min_margin_differ"] = min(picks["min_margin_differ"] or math.inf,
+                                             float(margin[differ].min()))
+
+    def host(grads):
+        return [g.detach().cpu().clone() for g in grads]
+
+    card_wm, card_ac = card_l._wm_grads, card_l._ac_grads
+    cpu_wm, cpu_ac = cpu_l._wm_grads, cpu_l._ac_grads
+
+    def card_wm_hook(b, n, idx=None):
+        aux, grads = card_wm(b, n)
+        card["wm"], card["wm_idx"] = host(grads), aux["z_scores"].argmax(-1).cpu()
+        return aux, grads
+
+    def card_ac_hook(h0, z0, n, idx_a=None, idx_z=None):
+        aux, ga, gc = card_ac(h0, z0, n)
+        card["actor"], card["critic"] = host(ga), host(gc)
+        card["a_idx"] = aux["a_scores"].argmax(-1).cpu()
+        card["z_idx"] = aux["z_scores"].argmax(-1).cpu()
+        return aux, ga, gc
+
+    def cpu_wm_hook(b, n, idx=None):
+        aux, grads = cpu_wm(b, n, card["wm_idx"])
+        count(aux["z_scores"], card["wm_idx"])
+        errs["wm"] = leaf_errors([g.numpy() for g in card["wm"]], [g.numpy() for g in grads])
+        return aux, [g.clone() for g in card["wm"]]
+
+    def cpu_ac_hook(h0, z0, n, idx_a=None, idx_z=None):
+        aux, ga, gc = cpu_ac(h0, z0, n, card["a_idx"], card["z_idx"])
+        count(aux["a_scores"], card["a_idx"])
+        count(aux["z_scores"], card["z_idx"])
+        errs["actor"] = leaf_errors([g.numpy() for g in card["actor"]], [g.numpy() for g in ga])
+        errs["critic"] = leaf_errors([g.numpy() for g in card["critic"]],
+                                     [g.numpy() for g in gc])
+        return aux, [g.clone() for g in card["actor"]], [g.clone() for g in card["critic"]]
+
+    card_l._wm_grads, card_l._ac_grads = card_wm_hook, card_ac_hook
+    cpu_l._wm_grads, cpu_l._ac_grads = cpu_wm_hook, cpu_ac_hook
+    try:
+        m_card, m_cpu = card_l.update(batch), cpu_l.update(batch)
+    finally:
+        for learner in (card_l, cpu_l):
+            for k in ("_wm_grads", "_ac_grads", "draw_noise"):
+                learner.__dict__.pop(k)
+    got, want = card_l.get_state(), cpu_l.get_state()
+    state_errs = leaf_errors(got["params"], want["params"]) + leaf_errors(
+        got["critic_ema"], want["critic_ema"])
+    for k in ("st_world", "st_actor", "st_critic"):
+        if got[k]["count"] != want[k]["count"]:
+            raise SystemExit(f"D1: {k} counts {got[k]['count']} vs {want[k]['count']}")
+        state_errs += leaf_errors(got[k]["mu"], want[k]["mu"])
+        state_errs += leaf_errors(got[k]["nu"], want[k]["nu"])
+    ret_err = abs(got["ret_range"] - want["ret_range"]) / abs(want["ret_range"])
+    return dict(grad_err={k: max(v) for k, v in errs.items()}, state_err=max(state_errs),
+                ret_range_err=ret_err, picks=picks, m_card=m_card, m_cpu=m_cpu)
+
+
+def rl_dreamer_learner_path(torch, card, dev="cuda"):
+    """D1: DreamerV3Learner at the JAX package's defaults on the card against
+    the same update on the CPU (dreamer_update_against_cpu), then
+    RL_DREAMER_TIMED updates timed on the host clock and one under
+    torch.profiler."""
+    from ray_tpu_torch.rllib.core.rl_module import tree_leaves
+
+    card_l, cpu_l = _dreamer_learner(dev), _dreamer_learner("cpu")
+    _on_card(torch, [card_l], dev, "D1")
+    if not all(t.device.type == torch.device(dev).type for t in
+               card_l.st_world.mu + card_l.st_actor.mu + card_l.st_critic.mu
+               + tree_leaves(card_l.critic_ema)):
+        raise SystemExit("D1: the optimizer state or the EMA critic is not on the card")
+    cfg = card_l.config
+    batch = _dreamer_batch(cfg)
+    cmp = dreamer_update_against_cpu(torch, card_l, cpu_l, batch)
+    p = cmp["picks"]
+    print(f"  D1 one update on the card against the CPU (deter {cfg.deter_size}, stoch "
+          f"{cfg.stoch_groups}x{cfg.stoch_classes}, {cfg.batch_size_seqs} x {cfg.seq_len}, "
+          f"horizon {cfg.imag_horizon}): worst leaf of max|ref| of the gradients "
+          + ", ".join(f"{k} {v:.3e}" for k, v in cmp["grad_err"].items())
+          + f"; of the state after it {cmp['state_err']:.3e} (limit {RL_DREAMER_TOL}); "
+          f"ret_range {cmp['ret_range_err']:.3e} relative (limit {RL_DREAMER_RET_TOL}); "
+          f"wm_loss {cmp['m_card']['wm_loss']:.6f} vs {cmp['m_cpu']['wm_loss']:.6f}", flush=True)
+    print(f"  D1 picks: {p['differ']} of {p['total']} differ on the CPU given the card's "
+          f"history; smallest top-two margin {p['min_margin']:.3e}, of those that differ "
+          f"{p['min_margin_differ']}", flush=True)
+    if (max(max(cmp["grad_err"].values()), cmp["state_err"]) > RL_DREAMER_TOL
+            or cmp["ret_range_err"] > RL_DREAMER_RET_TOL
+            or not all(math.isfinite(v) for v in cmp["m_card"].values())):
+        raise SystemExit(f"D1: the card's update differs from the CPU's: {cmp}")
+    if p["differ"] and not p["min_margin_differ"] < 1e-5:  # a near tie flips, nothing else
+        raise SystemExit(f"D1: a pick that differs has a top-two margin of "
+                         f"{p['min_margin_differ']}, not a near tie")
+    card_l.update(batch)  # warm
+    torch.cuda.synchronize()
+    n = RL_DREAMER_TIMED
+    t0 = time.perf_counter()
+    for _ in range(n):
+        card_l.update(batch)  # each ends with its one read-back
+    dt = time.perf_counter() - t0
+    ms = dt / n * 1e3
+    print(f"  D1 learner: {ms:.3f} ms per update, {n / dt:.2f} updates/s over {n} updates "
+          f"[{card}]", flush=True)
+    prof = profile_once(torch, "D1 one DreamerV3 update", lambda: card_l.update(batch))
+    return dict(grad_err=cmp["grad_err"], max_leaf_err=cmp["state_err"],
+                ret_range_err=cmp["ret_range_err"], picks=p,
+                wm_loss_card=cmp["m_card"]["wm_loss"], wm_loss_cpu=cmp["m_cpu"]["wm_loss"],
+                update_ms=ms, updates_per_s=n / dt, profile=prof,
+                geometry=dict(deter=cfg.deter_size, stoch=(cfg.stoch_groups, cfg.stoch_classes),
+                              hidden=cfg.hidden, embed=cfg.embed_size,
+                              batch=(cfg.batch_size_seqs, cfg.seq_len),
+                              horizon=cfg.imag_horizon))
+
+
+def _dreamer_tiny(dev):
+    from ray_tpu_torch.rllib import DreamerV3Config
+
+    return (DreamerV3Config().environment(CartPole)
+            .env_runners(num_env_runners=1, num_envs_per_env_runner=4,
+                         rollout_fragment_length=50)
+            .training(**RL_DREAMER_TINY).learners(device=dev).debugging(seed=0))
+
+
+def rl_dreamer_train_path(torch, card, dev="cuda"):
+    """D2: tests/test_dreamerv3.py:87-110 uncut on the numpy CartPole: at most
+    45 iterations, stopping as the test stops (best >= 30 from iteration 10);
+    the best return must reach 30. Then D3's checkpoint round trip on the
+    trained algorithm: a second algorithm loads it, and the actor's weights and
+    the whole learner state come back bit for bit."""
+    from ray_tpu_torch.rllib.core.rl_module import tree_leaves
+
+    algo = _dreamer_tiny(dev).build_algo()
+    try:
+        _on_card(torch, algo.learner_group.learners, dev, "D2")
+        spent = _timed_learner(algo)
+        best, baseline, returns = 0.0, None, []
+        t0 = time.perf_counter()
+        for it in range(RL_DREAMER_ITERS):
+            r = algo.train()
+            ret = r.get("episode_return_mean")
+            returns.append(ret)
+            if ret is None:
+                continue
+            if baseline is None:
+                baseline = ret
+            best = max(best, ret)
+            if best >= 30.0 and it >= 10:
+                break
+        dt = time.perf_counter() - t0
+        steps = r["num_env_steps_sampled_lifetime"]
+        iters = len(returns)
+        state = algo.save_checkpoint()
+        other = _dreamer_tiny(dev).build_algo()
+        try:
+            other.load_checkpoint(state)
+            w1, w2 = algo.learner_group.get_weights(), other.learner_group.get_weights()
+            actor_same = np.array_equal(w1["actor"][0]["w"], w2["actor"][0]["w"])
+            got = other.learner_group.get_state()
+            state_same = all(np.array_equal(np.asarray(a), np.asarray(b)) for a, b in zip(
+                tree_leaves(got), tree_leaves(state["learner"])))
+        finally:
+            other.stop()
+    finally:
+        algo.stop()
+    out = dict(iters=iters, wall_s=dt, env_steps=steps, env_steps_per_s=steps / dt,
+               updates=spent["updates"], updates_per_s=spent["updates"] / dt,
+               learner_s=spent["s"], learner_share=spent["s"] / dt, returns=returns,
+               baseline=baseline, best_return=best, checkpoint_actor_equal=actor_same,
+               checkpoint_state_equal=state_same, settings=dict(RL_DREAMER_TINY))
+    print(f"  D2 DreamerV3 on CartPole: {iters} iterations in {dt:.3f} s: {steps / dt:.1f} env "
+          f"steps/s, {spent['updates'] / dt:.2f} learner updates/s, learner "
+          f"{100 * out['learner_share']:.1f}% of an iteration [{card}]", flush=True)
+    print(f"  D2 episode_return_mean by iteration: "
+          f"{[None if x is None else round(x, 2) for x in returns]}; best {best:.2f} "
+          f"(baseline {baseline})", flush=True)
+    print(f"  D3 checkpoint round trip: actor weights bit-equal {actor_same}, the whole "
+          f"learner state bit-equal {state_same}", flush=True)
+    if baseline is None or not best >= 30.0:
+        raise SystemExit(f"D2: no learning by tests/test_dreamerv3.py's bar: best {best} "
+                         f"(baseline {baseline})")
+    if not (actor_same and state_same):
+        raise SystemExit("D3: the checkpoint round trip is not bit-equal")
+    return out
+
+
+def rl_dreamer_wm_path(torch, card, dev="cuda"):
+    """D3: tests/test_dreamerv3.py:52-66: one iteration fills the buffer past
+    warm-up, then the world-model loss must fall over 6 iterations."""
+    algo = _dreamer_tiny(dev).build_algo()
+    try:
+        algo.train()
+        losses = [algo.train().get("wm_loss") for _ in range(RL_DREAMER_WM_ITERS)]
+    finally:
+        algo.stop()
+    seen = [x for x in losses if x is not None]
+    print(f"  D3 wm_loss over {RL_DREAMER_WM_ITERS} iterations: "
+          f"{[None if x is None else round(x, 4) for x in losses]}", flush=True)
+    if not seen or not seen[-1] < seen[0]:
+        raise SystemExit(f"D3: the world-model loss did not fall: {losses}")
+    return dict(wm_losses=losses)
+
+
+def rl_dreamer_path(torch, fa, card, dev="cuda"):
+    """Phase D: D1, D2 (with D3's checkpoint round trip) and D3; no flash
+    kernel may launch."""
+    t0 = time.perf_counter()
+    fa.reset_launch_count()
+    out = {"learner": rl_dreamer_learner_path(torch, card, dev),
+           "train": rl_dreamer_train_path(torch, card, dev),
+           "world_model": rl_dreamer_wm_path(torch, card, dev)}
+    out["flash_launches"] = {k: fa.launch_count(k) for k in fa.KERNELS}
+    out["wall_s"] = time.perf_counter() - t0
+    print(f"  phase D took {out['wall_s']:.1f} s; flash launches {out['flash_launches']}",
+          flush=True)
+    if any(out["flash_launches"].values()):
+        raise SystemExit(f"D: DreamerV3 launched a flash kernel: {out['flash_launches']}")
     return out
 
 
@@ -3567,6 +4054,15 @@ def main() -> int:
           "recorded rows", flush=True)
     rl_off = rl_offpolicy_path(torch, fa, card)
 
+    print("[M] RLlib multi-agent PPO on the card: a two-module learner at bench_rllib's "
+          "geometry against the CPU, a shared and two separate policies on CartPole copies",
+          flush=True)
+    rl_ma = rl_multi_agent_path(torch, fa, card, rl["learner"]["minibatch_update_ms"])
+
+    print("[D] RLlib DreamerV3 on the card: the learner at the JAX defaults against the "
+          "CPU, DreamerV3 on CartPole, the world-model loss and a checkpoint", flush=True)
+    rl_dreamer = rl_dreamer_path(torch, fa, card)
+
     sources = {"flash_fwd": ("ray_tpu_torch/ops/csrc/flash_fwd.cu",
                              "ray_tpu/ops/flash_attention.py:123"),
                "flash_bwd_dq": ("ray_tpu_torch/ops/csrc/flash_bwd.cu",
@@ -3626,7 +4122,7 @@ def main() -> int:
                   int8=quant_served, spec=spec_served, pd=pd_served,
                   trained=trained_runs, train_numerics=train_check, moe=moe_served,
                   checkpoint=ckpt_served, moe_trained=moe_trained, rl=rl,
-                  rl_offpolicy=rl_off,
+                  rl_offpolicy=rl_off, rl_multi_agent=rl_ma, rl_dreamer=rl_dreamer,
                   kernels=kernels,
                   total_s=total_s)
     if json_path:

@@ -74,6 +74,7 @@ class Trainable:
 
 class Algorithm(Trainable):
     learner_class: type = Learner
+    env_runner_cls = None  # custom rollout worker class (None = SingleAgentEnvRunner)
 
     def __init__(self, config):
         if isinstance(config, dict):  # Tune passes plain dicts
@@ -111,7 +112,10 @@ class Algorithm(Trainable):
             model_config=cfg.model_config,
         )
         self.learner_group = LearnerGroup(cfg, self.module_spec, self.learner_class)
-        self.env_runner_group = EnvRunnerGroup(cfg) if cfg.env is not None else None
+        # subclasses with custom rollout workers (DreamerV3's recurrent
+        # runner) set env_runner_cls instead of rebuilding the group
+        self.env_runner_group = (EnvRunnerGroup(cfg, runner_cls=self.env_runner_cls)
+                                 if cfg.env is not None else None)
         # host-side module copy for connectors (GAE bootstrap values)
         self._module = self.module_spec.build()
         if self.env_runner_group is not None:

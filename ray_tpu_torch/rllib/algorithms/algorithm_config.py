@@ -7,8 +7,7 @@ learner's device, the card unless "cpu" is asked for
 (``ray_tpu_torch.device.resolve_device``, no fallback).
 
 Not ported yet, each raising NotImplementedError naming its ROADMAP item:
-``num_learners > 1`` (A9b), ``decoupled_rollout(enabled=True)`` (A9c),
-``multi_agent`` (A9g).
+``num_learners > 1`` (A9b) and ``decoupled_rollout(enabled=True)`` (A9c).
 """
 from __future__ import annotations
 
@@ -46,6 +45,10 @@ class AlgorithmConfig:
         self.input_dataset: Any = None  # any object with take_all() -> row dicts
         self.observation_space: Any = None  # offline mode: spaces given, no env probe
         self.action_space: Any = None
+        # multi-agent (reference AlgorithmConfig.multi_agent)
+        self.policies: Optional[Dict[str, Any]] = None  # mid -> (obs_space, act_space) | None
+        self.policy_mapping_fn: Callable[[Any], str] = lambda agent_id: "default_policy"
+        self.base_learner_class: Optional[type] = None  # per-module learner inside MultiAgentLearner
         # misc
         self.seed: Optional[int] = 0
 
@@ -131,8 +134,42 @@ class AlgorithmConfig:
             self.rl_module_class = rl_module_class
         return self
 
-    def multi_agent(self, **_kw) -> "AlgorithmConfig":
-        raise NotImplementedError("multi-agent is not ported yet (ROADMAP A9g)")
+    def multi_agent(self, *, policies=None, policy_mapping_fn=None, **_compat) -> "AlgorithmConfig":
+        """Declare policy modules + agent->module mapping (reference .multi_agent())."""
+        if policies is not None:
+            # accept {mid: None} or {mid: (obs_space, act_space)} or a list/set of mids
+            if isinstance(policies, (list, tuple, set)):
+                policies = {mid: None for mid in policies}
+            self.policies = dict(policies)
+        if policy_mapping_fn is not None:
+            self.policy_mapping_fn = policy_mapping_fn
+        return self
+
+    @property
+    def is_multi_agent(self) -> bool:
+        return self.policies is not None
+
+    def resolved_policy_specs(self, env) -> Dict[str, "RLModuleSpec"]:  # noqa: F821
+        """Per-module RLModuleSpecs with spaces from config or probed from the env."""
+        from ..core.rl_module import RLModuleSpec
+
+        specs = {}
+        for mid, spaces in (self.policies or {"default_policy": None}).items():
+            if spaces is not None:
+                obs_space, act_space = spaces
+            else:
+                # probe: spaces of the first agent mapped to this module
+                aid = next((a for a in env.possible_agents if self.policy_mapping_fn(a) == mid),
+                           env.possible_agents[0])
+                obs_space = env.observation_space_for(aid)
+                act_space = env.action_space_for(aid)
+            specs[mid] = RLModuleSpec(
+                module_class=self.rl_module_class,
+                observation_space=obs_space,
+                action_space=act_space,
+                model_config=self.model_config,
+            )
+        return specs
 
     def decoupled_rollout(self, *, enabled: bool = True, **_kw) -> "AlgorithmConfig":
         if enabled:

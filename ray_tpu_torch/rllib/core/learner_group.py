@@ -3,13 +3,15 @@
 The JAX package places each learner in an actor of its own runtime and syncs
 gradients across them with a collective allreduce. The port has no actor
 runtime: the group holds one ``Learner`` in the calling process, on the
-config's device. More than one learner, with its gradient sync, and placing
-the learner through a hosting runtime are ROADMAP A9b; the decoupled rollout
+config's device. A multi-agent group passes a ``module_id -> spec`` dict to
+its learner class (``MultiAgentLearner``) and updates on a ``module_id ->
+batch`` dict. More than one learner, with its gradient sync, and placing the
+learner through a hosting runtime are ROADMAP A9b; the decoupled rollout
 plane's methods are A9c.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Union
 
 import numpy as np
 
@@ -21,7 +23,7 @@ class LearnerGroup:
     def __init__(
         self,
         config: "AlgorithmConfig",  # noqa: F821
-        module_spec: RLModuleSpec,
+        module_spec: Union[RLModuleSpec, Dict[str, RLModuleSpec]],
         learner_class: type = Learner,
     ):
         if config.num_learners > 1:
@@ -32,13 +34,15 @@ class LearnerGroup:
         self.learners[0].build()
 
     def update(self, batch: Dict[str, Any]) -> List[Dict[str, Any]]:
-        """Update the learner on the batch's numpy columns; one metrics dict
-        per learner, as the JAX group returns them."""
+        """Update the learner on the batch's numpy columns (per module, for a
+        module_id -> batch dict); one metrics dict per learner, as the JAX
+        group returns them."""
+        return [self.learners[0].update(self._columns(batch))]
+
+    def _columns(self, batch: Dict[str, Any]) -> Dict[str, Any]:
         if batch and all(isinstance(v, dict) for v in batch.values()):
-            raise NotImplementedError(
-                "a module_id -> batch dict (multi-agent) is not ported yet (ROADMAP A9g)")
-        return [self.learners[0].update(
-            {k: v for k, v in batch.items() if isinstance(v, np.ndarray)})]
+            return {mid: self._columns(sub) for mid, sub in batch.items()}
+        return {k: v for k, v in batch.items() if isinstance(v, np.ndarray)}
 
     def update_from_blocks(self, handles: List[Any]) -> List[Dict[str, Any]]:
         raise NotImplementedError(

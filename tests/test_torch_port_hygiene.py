@@ -155,6 +155,9 @@ def _entry_point(name):
             "BC": lambda: rllib.BCConfig().environment(
                 observation_space=box, action_space=_RLSpace(n=2)).offline_data(
                 input_="rows.json").build_algo(),
+            "MultiAgentPPO": lambda: rllib.MultiAgentPPOConfig().environment(
+                rllib.make_multi_agent(_RLEnv)).build_algo(),
+            "DreamerV3": lambda: rllib.DreamerV3Config().environment(_RLEnv).build_algo(),
             "DQNLearner": lambda: rllib.DQNLearner(rllib.DQNConfig(), rllib.RLModuleSpec(
                 module_class=DQNModule, observation_space=box, action_space=_RLSpace(n=2))),
             "TorchLLMEngine": lambda: TorchLLMEngine(LLMConfig()),
@@ -176,7 +179,8 @@ def _entry_point(name):
                                   "LLMEngineStage",
                                   "llama.init", "init_state", "init_paged_state",
                                   "train.init_state",
-                                  "make_train_step", "DQN", "SAC", "CQL", "BC", "DQNLearner"])
+                                  "make_train_step", "DQN", "SAC", "CQL", "BC", "DQNLearner",
+                                  "MultiAgentPPO", "DreamerV3"])
 def test_entry_points_default_to_cuda_and_refuse_a_silent_cpu(monkeypatch, name):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):

@@ -571,11 +571,8 @@ def test_a_string_env_without_gymnasium_says_so(monkeypatch):
 @pytest.mark.parametrize("call,item", [
     (lambda: rllib.PPOConfig().decoupled_rollout(enabled=True), "A9c"),
     (lambda: rllib.PPOConfig().learners(num_learners=2), "A9b"),
-    (lambda: rllib.PPOConfig().multi_agent(policies=["p"]), "A9g"),
     (lambda: rllib.IMPALAConfig(), "A9d"),
     (lambda: rllib.APPOConfig(), "A9d"),
-    (lambda: rllib.MultiAgentPPOConfig(), "A9g"),
-    (lambda: rllib.DreamerV3Config(), "A9h"),
 ])
 def test_what_the_slice_does_not_port_raises_naming_its_item(call, item):
     with pytest.raises(NotImplementedError, match=item):
@@ -591,5 +588,21 @@ def test_learner_group_refuses_more_learners_and_blocks():
     group = rllib.LearnerGroup(_pt_config(), pt_spec, rllib.PPOLearner)
     with pytest.raises(NotImplementedError, match="A9c"):
         group.update_from_blocks([])
-    with pytest.raises(NotImplementedError, match="A9g"):
-        group.update({"p0": {"obs": np.zeros((2, 4))}})
+    # a module_id -> batch dict updates each module of a MultiAgentLearner
+    cfg = _pt_config()
+    cfg.base_learner_class = rllib.PPOLearner
+    specs = {mid: pt_spec for mid in ("p0", "p1")}
+    ma_group = rllib.LearnerGroup(cfg, specs, rllib.MultiAgentLearner)
+    before = ma_group.get_weights()
+    rng = np.random.default_rng(0)
+    batch = {"obs": rng.standard_normal((32, 4)).astype(np.float32),
+             "actions": rng.integers(0, 2, 32), "action_logp": np.full(32, -0.69, np.float32),
+             "advantages": rng.standard_normal(32).astype(np.float32),
+             "value_targets": rng.standard_normal(32).astype(np.float32)}
+    out = ma_group.update({"p0": batch, "p1": dict(batch, advantages=-batch["advantages"])})
+    assert len(out) == 1 and sorted(out[0]) == ["p0", "p1"]
+    after = ma_group.get_weights()
+    for mid in ("p0", "p1"):
+        assert ma_group.learners[0]._subs[mid].opt_state.count == 2
+        assert not np.array_equal(after[mid]["pi"][0]["w"], before[mid]["pi"][0]["w"])
+    assert not np.array_equal(after["p0"]["pi"][0]["w"], after["p1"]["pi"][0]["w"])
