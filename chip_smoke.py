@@ -191,6 +191,15 @@ Phases, each fatal on failure (the script exits non-zero and prints no result):
      updates/s and the learner's share, then a checkpoint loaded into a
      second algorithm, bit-equal; D3, :52-66, the world-model loss falls
      over 6 iterations;
+  I. after D, RLlib's IMPALA and APPO (A9d), no flash kernel: I1,
+     IMPALALearner and APPOLearner (use_kl_loss) at R1's widths on one
+     padded batch (obs_ext [64, 65, 64], 16 ragged sequences, off-policy
+     behaviour logp), 2 whole-batch steps held to the CPU's as R1 is (APPO's
+     kl_coeff after it equal), then ms per whole-batch step over 20 updates
+     and the busy share of one; I2, tests/test_impala.py:71-88 uncut on the
+     numpy CartPole (25 iterations), which must learn by that test's bar,
+     env steps/s and the learner's share; I3, :108-125 uncut, APPO's
+     checkpoint restores its weights and kl_coeff bit for bit;
  10. a JSON line of the kernels, the card's name and power limit, and last the
      line {"ok": true, "device": {...}}.
 With ``--json PATH`` a copy of every number is written to PATH as JSON.
@@ -3897,6 +3906,197 @@ def rl_dreamer_path(torch, fa, card, dev="cuda"):
     return out
 
 
+# phase I: RLlib IMPALA and APPO on the card (A9d). I1 holds IMPALALearner
+# and APPOLearner (KL on) at R1's widths (RL_LEARNER) to their CPU runs on one
+# padded batch of 64 sequences at max_seq_len 64; I2 and I3 are
+# tests/test_impala.py:71-88 and :108-125 uncut, on the numpy CartPole.
+RL_IMPALA_LEARNER = dict(seqs=64, max_seq_len=64, ragged=16, epochs=2, timed=20)
+RL_IMPALA = dict(runners=2, envs=4, fragment=32, lr=1e-3, batch=512, gamma=0.99,
+                 entropy_coeff=0.005, max_seq_len=64, broadcast_interval=1, epochs=4, iters=25)
+RL_APPO = dict(runners=1, envs=2, fragment=32, batch=128, clip_param=0.3)
+
+
+def _impala_batch(seed=0):
+    """I1's padded batch (pad_time_major): RL_IMPALA_LEARNER['seqs']
+    sequences of R1's observations and actions, all at max_seq_len but the
+    last `ragged`, which are shorter; every third terminated, every third
+    truncated; the behaviour logp is the uniform policy's, off by 0.05 plus
+    N(0, 0.5) noise, so rho spreads on both sides of its clips."""
+    from ray_tpu_torch.rllib.algorithms.impala import pad_time_major
+
+    g, gi = RL_LEARNER, RL_IMPALA_LEARNER
+    rng = np.random.default_rng(seed)
+    T = gi["max_seq_len"]
+    lens = np.full(gi["seqs"], T)
+    lens[-gi["ragged"]:] = rng.integers(1, T, gi["ragged"])
+    eps = []
+    for i, n in enumerate(lens):
+        eps.append({"obs": rng.standard_normal((n, g["obs_dim"])).astype(np.float32),
+                    "next_obs_last": rng.standard_normal(g["obs_dim"]).astype(np.float32),
+                    "actions": rng.integers(0, g["n_actions"], n),
+                    "rewards": rng.standard_normal(n).astype(np.float32),
+                    "terminated": i % 3 == 0, "truncated": i % 3 == 1,
+                    "action_logp": (-np.log(g["n_actions"]) + 0.05
+                                    + rng.normal(0.0, 0.5, n)).astype(np.float32)})
+    return pad_time_major(eps, T)
+
+
+def _impala_learner(name, dev):
+    from ray_tpu_torch.rllib import APPOConfig, APPOLearner, IMPALAConfig, IMPALALearner
+    from ray_tpu_torch.rllib.core.rl_module import RLModuleSpec
+
+    g, gi = RL_LEARNER, RL_IMPALA_LEARNER
+    spec = RLModuleSpec(observation_space=Box((g["obs_dim"],)),
+                        action_space=Discrete(g["n_actions"]),
+                        model_config={"fcnet_hiddens": g["hiddens"]})
+    cfg, cls = ((IMPALAConfig(), IMPALALearner) if name == "IMPALA"
+                else (APPOConfig().training(use_kl_loss=True), APPOLearner))
+    cfg = (cfg.training(num_epochs=gi["epochs"], max_seq_len=gi["max_seq_len"])
+           .learners(device=dev).debugging(seed=0))
+    out = cls(cfg, spec)
+    out.build()
+    return out
+
+
+def rl_impala_learner_path(torch, card, dev="cuda"):
+    """I1: IMPALALearner and APPOLearner (use_kl_loss) at R1's widths on the
+    card: one update of RL_IMPALA_LEARNER['epochs'] whole-batch steps against
+    the CPU's (update_against_cpu; APPO's kl_coeff after it equal), then ms
+    per whole-batch step over RL_IMPALA_LEARNER['timed'] updates and one
+    update under torch.profiler."""
+    gi = RL_IMPALA_LEARNER
+    batch = _impala_batch()
+    steps_real = int(batch["mask"].sum())
+    out = {}
+    for name in ("IMPALA", "APPO"):
+        card_l, cpu_l = _impala_learner(name, dev), _impala_learner(name, "cpu")
+        _on_card(torch, [card_l], dev, "I1")
+        cmp = update_against_cpu(card_l, cpu_l, batch)
+        m_card, m_cpu = cmp["m_card"], cmp["m_cpu"]
+        kl = (card_l._kl_coeff, cpu_l._kl_coeff) if name == "APPO" else None
+        print(f"  I1 {name}Learner, one update of {cmp['steps']} whole-batch steps on "
+              f"obs_ext {list(batch['obs_ext'].shape)} ({steps_real} real steps) on the card "
+              f"against the CPU: worst leaf of max|ref| of the gradients {cmp['grad_err']:.3e}, "
+              f"of the state after it {cmp['state_err']:.3e} (limit {RL_LEARNER_TOL}); "
+              f"total_loss {m_card['total_loss']:.6f} vs {m_cpu['total_loss']:.6f}, mean_rho "
+              f"{m_card['mean_rho']:.4f}" + (f", kl_coeff {kl[0]} vs {kl[1]}" if kl else ""),
+              flush=True)
+        if (max(cmp["grad_err"], cmp["state_err"]) > RL_LEARNER_TOL
+                or not all(math.isfinite(v) for v in m_card.values())
+                or (kl is not None and kl[0] != kl[1])):
+            raise SystemExit(f"I1: the card's {name} update differs from the CPU's: {cmp}")
+        card_l.update(batch)  # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(gi["timed"]):
+            card_l.update(batch)  # each ends with its one read-back
+        dt = time.perf_counter() - t0
+        steps = gi["timed"] * gi["epochs"]
+        step_ms = dt / steps * 1e3
+        print(f"  I1 {name}Learner: {step_ms:.3f} ms per whole-batch step, {steps / dt:.1f} "
+              f"steps/s, {gi['timed'] / dt:.2f} updates/s over {gi['timed']} updates of "
+              f"{gi['epochs']} steps [{card}]", flush=True)
+        prof = profile_once(torch, f"I1 one {name} update", lambda: card_l.update(batch))
+        out[name] = dict(grad_err=cmp["grad_err"], max_leaf_err=cmp["state_err"],
+                         total_loss_card=m_card["total_loss"], total_loss_cpu=m_cpu["total_loss"],
+                         mean_rho=m_card["mean_rho"], kl_coeff=kl, step_ms=step_ms,
+                         steps_per_s=steps / dt, updates_per_s=gi["timed"] / dt, profile=prof)
+    out["geometry"] = dict(obs_dim=RL_LEARNER["obs_dim"], n_actions=RL_LEARNER["n_actions"],
+                           hiddens=RL_LEARNER["hiddens"], **gi, real_steps=steps_real)
+    return out
+
+
+def rl_impala_train_path(torch, card, dev="cuda"):
+    """I2: tests/test_impala.py:71-88 uncut on the numpy CartPole: 25
+    iterations; it must learn by that test's bar (the best return after the
+    third iteration 15 above the first)."""
+    from ray_tpu_torch.rllib import IMPALAConfig
+
+    g = RL_IMPALA
+    algo = (IMPALAConfig().environment(CartPole)
+            .env_runners(num_env_runners=g["runners"], num_envs_per_env_runner=g["envs"],
+                         rollout_fragment_length=g["fragment"])
+            .training(lr=g["lr"], train_batch_size=g["batch"], gamma=g["gamma"],
+                      entropy_coeff=g["entropy_coeff"], max_seq_len=g["max_seq_len"],
+                      broadcast_interval=g["broadcast_interval"], num_epochs=g["epochs"])
+            .learners(device=dev).debugging(seed=0).build_algo())
+    try:
+        _on_card(torch, algo.learner_group.learners, dev, "I2")
+        spent = _timed_learner(algo)
+        returns, trained, rhos = [], 0, []
+        t0 = time.perf_counter()
+        for _ in range(g["iters"]):
+            result = algo.train()
+            returns.append(result.get("episode_return_mean") or 0.0)
+            trained += result["num_env_steps_trained"]
+            rhos.append(result["mean_rho"])
+        dt = time.perf_counter() - t0
+    finally:
+        algo.stop()
+    out = dict(iters=g["iters"], wall_s=dt, env_steps=trained, env_steps_per_s=trained / dt,
+               updates=spent["updates"] * g["epochs"],
+               updates_per_s=spent["updates"] * g["epochs"] / dt, learner_s=spent["s"],
+               learner_share=spent["s"] / dt, iteration_ms=dt / g["iters"] * 1e3,
+               returns=returns, mean_rho=rhos, settings=dict(g))
+    print(f"  I2 IMPALA on CartPole: {g['iters']} iterations in {dt:.3f} s: "
+          f"{trained / dt:.1f} env steps/s, {out['updates_per_s']:.1f} whole-batch steps/s, "
+          f"learner {100 * out['learner_share']:.1f}% of an iteration "
+          f"({out['iteration_ms']:.1f} ms) [{card}]", flush=True)
+    print(f"  I2 episode_return_mean by iteration: {[round(r, 2) for r in returns]}; "
+          f"mean_rho {[round(r, 4) for r in rhos]}", flush=True)
+    if not max(returns[3:]) > returns[0] + 15:
+        raise SystemExit(f"I2: IMPALA did not learn by tests/test_impala.py's bar: {returns}")
+    return out
+
+
+def rl_appo_checkpoint_path(torch, card, dev="cuda"):
+    """I3: tests/test_impala.py:108-125 uncut: APPO with the KL term trains,
+    and a checkpoint restores its weights and kl_coeff bit for bit."""
+    from ray_tpu_torch.rllib import APPOConfig
+    from ray_tpu_torch.rllib.core.rl_module import tree_leaves
+
+    g = RL_APPO
+    algo = (APPOConfig().environment(CartPole)
+            .env_runners(num_env_runners=g["runners"], num_envs_per_env_runner=g["envs"],
+                         rollout_fragment_length=g["fragment"])
+            .training(train_batch_size=g["batch"], clip_param=g["clip_param"], use_kl_loss=True)
+            .learners(device=dev).debugging(seed=0).build_algo())
+    try:
+        _on_card(torch, algo.learner_group.learners, dev, "I3")
+        first = algo.train()
+        state = algo.save_checkpoint()
+        w_before = algo.get_weights()
+        second = algo.train()
+        algo.load_checkpoint(state)
+        restored = all(np.array_equal(a, b) for a, b in zip(tree_leaves(algo.get_weights()),
+                                                            tree_leaves(w_before)))
+        kl_restored = algo.learner_group.learners[0]._kl_coeff == state["learner"]["kl_coeff"]
+    finally:
+        algo.stop()
+    print(f"  I3 APPO: kl_coeff {first['kl_coeff']} then {second['kl_coeff']}; checkpoint "
+          f"restored bit for bit: weights {restored}, kl_coeff {kl_restored}", flush=True)
+    if not (restored and kl_restored and math.isfinite(first["total_loss"])):
+        raise SystemExit(f"I3: weights restored {restored}, kl_coeff restored {kl_restored}")
+    return dict(restored=restored, kl_restored=kl_restored,
+                kl_coeff=[first["kl_coeff"], second["kl_coeff"]], settings=dict(g))
+
+
+def rl_impala_path(torch, fa, card, dev="cuda"):
+    """Phase I: I1, I2 and I3; no flash kernel may launch."""
+    t0 = time.perf_counter()
+    fa.reset_launch_count()
+    out = {"learner": rl_impala_learner_path(torch, card, dev),
+           "train": rl_impala_train_path(torch, card, dev),
+           "checkpoint": rl_appo_checkpoint_path(torch, card, dev)}
+    out["flash_launches"] = {k: fa.launch_count(k) for k in fa.KERNELS}
+    out["wall_s"] = time.perf_counter() - t0
+    print(f"  phase I took {out['wall_s']:.1f} s; flash launches {out['flash_launches']}",
+          flush=True)
+    if any(out["flash_launches"].values()):
+        raise SystemExit(f"I: IMPALA or APPO launched a flash kernel: {out['flash_launches']}")
+    return out
+
+
 SASS_OPS = ("HGMMA", "UTMALDG", "UTMASTG", "HMMA")  # wgmma, TMA load / store, mma.sync
 # the bf16 kernels of B1a, B1b and B1c at D = 64 and 128
 WGMMA_KERNELS = tuple(f"flash_{k}_bf16_wgmma_kernel<{d}>"
@@ -4063,6 +4263,10 @@ def main() -> int:
           "CPU, DreamerV3 on CartPole, the world-model loss and a checkpoint", flush=True)
     rl_dreamer = rl_dreamer_path(torch, fa, card)
 
+    print("[I] RLlib IMPALA and APPO on the card: both learners at bench_rllib's widths "
+          "against the CPU, IMPALA on CartPole, APPO's checkpoint", flush=True)
+    rl_impala = rl_impala_path(torch, fa, card)
+
     sources = {"flash_fwd": ("ray_tpu_torch/ops/csrc/flash_fwd.cu",
                              "ray_tpu/ops/flash_attention.py:123"),
                "flash_bwd_dq": ("ray_tpu_torch/ops/csrc/flash_bwd.cu",
@@ -4123,6 +4327,7 @@ def main() -> int:
                   trained=trained_runs, train_numerics=train_check, moe=moe_served,
                   checkpoint=ckpt_served, moe_trained=moe_trained, rl=rl,
                   rl_offpolicy=rl_off, rl_multi_agent=rl_ma, rl_dreamer=rl_dreamer,
+                  rl_impala=rl_impala,
                   kernels=kernels,
                   total_s=total_s)
     if json_path:

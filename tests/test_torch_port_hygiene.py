@@ -158,6 +158,10 @@ def _entry_point(name):
             "MultiAgentPPO": lambda: rllib.MultiAgentPPOConfig().environment(
                 rllib.make_multi_agent(_RLEnv)).build_algo(),
             "DreamerV3": lambda: rllib.DreamerV3Config().environment(_RLEnv).build_algo(),
+            "IMPALA": lambda: rllib.IMPALAConfig().environment(_RLEnv).build_algo(),
+            "APPO": lambda: rllib.APPOConfig().environment(_RLEnv).build_algo(),
+            "IMPALALearner": lambda: rllib.IMPALALearner(rllib.IMPALAConfig(), rllib.RLModuleSpec(
+                observation_space=box, action_space=_RLSpace(n=2))),
             "DQNLearner": lambda: rllib.DQNLearner(rllib.DQNConfig(), rllib.RLModuleSpec(
                 module_class=DQNModule, observation_space=box, action_space=_RLSpace(n=2))),
             "TorchLLMEngine": lambda: TorchLLMEngine(LLMConfig()),
@@ -180,7 +184,8 @@ def _entry_point(name):
                                   "llama.init", "init_state", "init_paged_state",
                                   "train.init_state",
                                   "make_train_step", "DQN", "SAC", "CQL", "BC", "DQNLearner",
-                                  "MultiAgentPPO", "DreamerV3"])
+                                  "MultiAgentPPO", "DreamerV3", "IMPALA", "APPO",
+                                  "IMPALALearner"])
 def test_entry_points_default_to_cuda_and_refuse_a_silent_cpu(monkeypatch, name):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):

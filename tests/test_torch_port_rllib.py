@@ -571,8 +571,10 @@ def test_a_string_env_without_gymnasium_says_so(monkeypatch):
 @pytest.mark.parametrize("call,item", [
     (lambda: rllib.PPOConfig().decoupled_rollout(enabled=True), "A9c"),
     (lambda: rllib.PPOConfig().learners(num_learners=2), "A9b"),
-    (lambda: rllib.IMPALAConfig(), "A9d"),
-    (lambda: rllib.APPOConfig(), "A9d"),
+    (lambda: rllib.IMPALAConfig().training(num_aggregator_actors_per_learner=1)
+     .learners(device="cpu").build_algo(), "A9b"),
+    (lambda: rllib.APPOConfig().training(num_aggregator_actors_per_learner=1)
+     .learners(device="cpu").build_algo(), "A9b"),
 ])
 def test_what_the_slice_does_not_port_raises_naming_its_item(call, item):
     with pytest.raises(NotImplementedError, match=item):
