@@ -15,7 +15,8 @@ Phases, each fatal on failure (the script exits non-zero and prints no result):
      PyTorch version on the card, at the shapes the main paths give it, the
      edges of the 128-row tiles (S = 127, 129, 2047, Sq != Skv) and a tiny
      ragged one, in bf16 and f32, with the stated tolerance: B1a (forward) at
-     the prefill and training shapes, B1b and B1c (backward) at the training
+     the prefill and training shapes and at one tp 2 rank's heads (H16/4 at
+     S = 16, 129, 1024), B1b and B1c (backward) at the training
      shape (B6 S2048 H32/8 D128 causal), a segment-id shape, the same tile
      edges and a tiny one; each kernel's time (CUDA events, and
      device time per launch from torch.profiler) beside its plain version's,
@@ -33,6 +34,31 @@ Phases, each fatal on failure (the script exits non-zero and prints no result):
   4. the served model's output checked against the plain path at full width
      (two layers of llama3-8b in f32): prefill logits through the flash kernel
      vs plain attention, and a decode step vs the full forward;
+  T. tensor parallelism (A6a) on the same card, after 4: llama3-8b at
+     tensor_parallel_size=2 as two ranks sharing cuda:0 over gloo (NCCL
+     refuses two ranks on one device), and over NCCL on cuda:0,1 too where
+     the machine has two cards (the line says which ran). Phase 3's three
+     solo prompts (their tails that leave room for 16 tokens), each in a
+     slot of its own, on tp 1 (phase 3's weights: prefill, then 16 greedy
+     decode steps of the three slots) and on two spawned ranks, each holding
+     its shard of the same seeded init (llama.init with the mesh),
+     prefilling (B1a 32 times per rank per prefill, at 16 q and 4 kv heads)
+     and decoding fed tp 1's ids: prefill and decode logits within 2e-2 of
+     max|ref| of tp 1's, rank 0's and rank 1's logits bit-equal; each rank's
+     start peak, decode step ms and the 1001-token prefill's ms, each with
+     its collectives' ms. Then
+     LLMServer(LLMConfig(model_source="llama3-8b", tensor_parallel_size=2),
+     devices=["cuda:0", "cuda:0"]) in the slot layout (three concurrent
+     requests, then the three solo prompts: TTFT per bucket, decode
+     tokens/s), paged (bench_serve's settings, prefix cache off; the three
+     concurrent requests) and int8 (the three, then the shortest solo
+     prompt), 16 tokens each, each finishing with "length", rank 0's B1a
+     count zeroed just before and read just after (n_layers per prefill),
+     and the served greedy ids equal to tp 1's (int8: tp 1 on the same
+     weights quantized) up to tp 1's first near tie (a top-2 gap under 2e-2
+     of max|logits|), and where they part tp 2's token within 4e-2 of
+     max|logits| of tp 1's top. Every number of T is two ranks on one
+     card, not a TP speed;
   5. paged serving: llama3-8b on the same weights with kv_layout="paged" and
      bench_serve.py's engine settings (32 slots, 1024 positions, 32-token
      blocks, buckets 32..1024): decode_step_paged against decode_step on the
@@ -358,6 +384,10 @@ def kernel_checks(torch, fa):
         cases.append(dict(b=1, s=s, h=32, hkv=8, d=128, causal=True, seg=False))
     cases.append(dict(b=1, s=100, skv=300, h=32, hkv=8, d=128, causal=False, seg=False))
     cases.append(dict(b=2, s=257, skv=77, h=4, hkv=2, d=64, causal=False, seg=False))
+    # one rank's heads of llama3-8b at tensor_parallel_size=2 (phase T): the
+    # smallest and largest prefill buckets and a tile edge
+    for s in (16, 129, 1024):
+        cases.append(dict(b=1, s=s, h=16, hkv=4, d=128, causal=True, seg=False))
     for dtype, tol in ((torch.bfloat16, BF16_TOL), (torch.float32, F32_TOL)):
         for c in cases:
             b, s, h, hkv, d = c["b"], c["s"], c["h"], c["hkv"], c["d"]
@@ -4103,6 +4133,422 @@ WGMMA_KERNELS = tuple(f"flash_{k}_bf16_wgmma_kernel<{d}>"
                       for k in ("fwd", "bwd_dq", "bwd_dkv") for d in (64, 128))
 
 
+# phase T: tensor parallelism on one card (A6a). llama3-8b at tp 2, phase 3's
+# seed and solo prompts: two ranks share cuda:0 over gloo (NCCL refuses two
+# ranks on one device, and gloo stages each CUDA collective through the
+# host), and NCCL on cuda:0 and cuda:1 runs too where the machine has two
+# cards. The numbers are those of 2 ranks sharing one H100, not a TP speed.
+TP = 2
+TP_FED = 16  # decode steps teacher-forced with tp 1's greedy ids
+TP_TOL = 2e-2  # bf16 logits, max|d| / max|ref|, tp 2 against tp 1 on the same weights
+TP_GEN = 16  # tokens per served request
+TP_LABEL = {"gloo": "2 ranks sharing one H100 over gloo", "nccl": "2 H100s over NCCL"}
+
+
+def tp_rank(rank, init_method, devices, prompts, fed, outbox):
+    """One rank of phase T's function-level check (a spawned process): its
+    shard of the seeded llama3-8b, each prompt prefilled into a slot of its
+    own (B1a at this rank's heads, counted), then TP_FED decode steps of
+    all slots fed tp 1's ids, then decode steps timed, the last with every
+    collective timed. Puts (rank, result) or (rank, traceback)."""
+    import hashlib
+    import traceback
+
+    import torch
+    import torch.distributed as dist
+
+    try:
+        from ray_tpu_torch.llm import model_runner
+        from ray_tpu_torch.models import llama
+        from ray_tpu_torch.models.config import get_config
+        from ray_tpu_torch.ops import flash_attention as fa
+        from ray_tpu_torch.parallel import MeshSpec, build_mesh
+
+        mesh = build_mesh(MeshSpec(tp=TP), devices, rank=rank, init_method=init_method)
+        cfg = get_config("llama3-8b")
+        dev = torch.device(devices[rank])
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        params = llama.init(cfg, seed=0, device=dev, dtype=torch.bfloat16, mesh=mesh)
+        torch.cuda.synchronize(dev)
+        init_s = time.perf_counter() - t0
+        start_peak = torch.cuda.max_memory_allocated(dev)
+        heads = (params["layers"]["wq"].shape[2], params["layers"]["wk"].shape[2])
+        seen = []  # (q heads, kv heads) of every B1a launch
+        real_fwd = fa.flash_attention_forward
+
+        def spy(q, k, v, **kw):
+            seen.append((q.shape[2], k.shape[2]))
+            return real_fwd(q, k, v, **kw)
+
+        fa.flash_attention_forward = spy
+        out = dict(rank=rank, backend=dist.get_backend(), heads=heads, init_s=init_s,
+                   start_peak=start_peak, launches=[])
+        with torch.no_grad():
+            state = model_runner.init_state(cfg, len(prompts), tp_max_len(prompts), dev,
+                                            mesh=mesh)
+            first = []
+            for slot, prompt in enumerate(prompts):
+                torch.cuda.synchronize(dev)
+                fa.reset_launch_count()
+                state, last = model_runner.prefill(params, state, tp_tokens(torch, prompt, dev),
+                                                   len(prompt), slot, cfg, mesh=mesh)
+                torch.cuda.synchronize(dev)
+                out["launches"].append(fa.launch_count())
+                first.append(last.float())
+            active = torch.ones((len(prompts),), dtype=torch.bool, device=dev)
+            steps = []
+            for t in range(TP_FED):
+                row = torch.tensor([ids[t] for ids in fed], device=dev)
+                state, lg = model_runner.decode_step(params, state, row, active, cfg,
+                                                     mesh=mesh)
+                steps.append(lg)
+            first, steps = torch.stack(first).cpu().numpy(), torch.stack(steps).cpu().numpy()
+            out["digest"] = hashlib.sha256(first.tobytes() + steps.tobytes()).hexdigest()
+            if rank == 0:
+                out.update(prefill=first, decode=steps)
+            out["heads_seen"] = sorted(set(seen))
+            # decode steps of every slot, timed; the last with every collective
+            # bracketed by syncs
+            row = torch.tensor([ids[TP_FED] for ids in fed], device=dev)
+
+            def step():
+                model_runner.decode_step(params, state, row, active, cfg, mesh=mesh)
+                torch.cuda.synchronize(dev)
+
+            step()
+            walls = []
+            for _ in range(3):
+                t = time.perf_counter()
+                step()
+                walls.append(time.perf_counter() - t)
+            coll = [0.0, 0]
+            real = {name: getattr(dist, name) for name in ("all_reduce", "all_gather")}
+
+            def timed(fn):
+                def call(*args, **kw):
+                    torch.cuda.synchronize(dev)
+                    t = time.perf_counter()
+                    r = fn(*args, **kw)
+                    torch.cuda.synchronize(dev)
+                    coll[0] += time.perf_counter() - t
+                    coll[1] += 1
+                    return r
+                return call
+
+            # the longest prompt prefilled again into its slot, once plain
+            # and once with its collectives timed
+            long = prompts[-1]
+
+            def fill():
+                model_runner.prefill(params, state, tp_tokens(torch, long, dev), len(long),
+                                     len(prompts) - 1, cfg, mesh=mesh)
+                torch.cuda.synchronize(dev)
+
+            t = time.perf_counter()
+            fill()
+            fill_wall = time.perf_counter() - t
+            for name, fn in real.items():
+                setattr(dist, name, timed(fn))
+            t = time.perf_counter()
+            step()
+            synced = time.perf_counter() - t
+            step_coll = list(coll)
+            coll[:] = [0.0, 0]
+            t = time.perf_counter()
+            fill()
+            fill_synced = time.perf_counter() - t
+            for name, fn in real.items():
+                setattr(dist, name, fn)
+        out.update(step_ms=statistics.median(walls) * 1e3, synced_step_ms=synced * 1e3,
+                   collective_ms=step_coll[0] * 1e3, collectives=step_coll[1],
+                   prefill_tokens=len(long), prefill_ms=fill_wall * 1e3,
+                   synced_prefill_ms=fill_synced * 1e3, prefill_collective_ms=coll[0] * 1e3,
+                   prefill_collectives=coll[1])
+        outbox.put((rank, out))
+        dist.destroy_process_group()
+    except BaseException:
+        outbox.put((rank, traceback.format_exc()))
+
+
+def tp_max_len(prompts):
+    """Slot length for phase T's prompts: the largest bucket, the fed and
+    timed steps, and room to spare."""
+    return max(1 << (len(p) - 1).bit_length() for p in prompts) + TP_FED + 16
+
+
+def tp_tokens(torch, prompt, dev):
+    """[1, bucket] ids: the prompt padded to the next power of two."""
+    tokens = torch.zeros((1, 1 << (len(prompt) - 1).bit_length()), dtype=torch.long,
+                         device=dev)
+    tokens[0, :len(prompt)] = torch.tensor(prompt, device=dev)
+    return tokens
+
+
+def tp_ranks_check(torch, devices, prompts, fed):
+    """Run tp_rank on len(devices) spawned ranks -> their results by rank;
+    exits if a rank fails or does not answer in 300 s, and joins them all."""
+    import multiprocessing
+    import queue
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        init_method = f"tcp://127.0.0.1:{s.getsockname()[1]}"
+    ctx = multiprocessing.get_context("spawn")
+    outbox = ctx.Queue()
+    procs = [ctx.Process(target=tp_rank, daemon=True,
+                         args=(r, init_method, devices, prompts, fed, outbox))
+             for r in range(len(devices))]
+    for p in procs:
+        p.start()
+    got = {}
+    try:
+        for _ in procs:
+            rank, out = outbox.get(timeout=300)
+            if isinstance(out, str):
+                raise SystemExit(f"phase T rank {rank} failed:\n{out}")
+            got[rank] = out
+    except queue.Empty:
+        raise SystemExit("phase T: a rank did not answer within 300 s") from None
+    finally:
+        for p in procs:
+            p.join(30)
+            if p.is_alive():
+                p.kill()
+                p.join(5)
+    return got
+
+
+def tp1_greedy(torch, params, prompts, dev):
+    """tp 1 (one process, `params` whole): each prompt prefilled into a slot
+    of its own, then TP_FED greedy decode steps of all slots -> (prefill
+    logits [P, V], decode logits [TP_FED, P, V], each prompt's TP_FED + 1
+    greedy ids)."""
+    from ray_tpu_torch.llm import model_runner
+    from ray_tpu_torch.models.config import get_config
+
+    cfg = get_config("llama3-8b")
+    with torch.no_grad():
+        state = model_runner.init_state(cfg, len(prompts), tp_max_len(prompts), dev)
+        first = []
+        for slot, prompt in enumerate(prompts):
+            state, last = model_runner.prefill(params, state, tp_tokens(torch, prompt, dev),
+                                               len(prompt), slot, cfg)
+            first.append(last.float())
+        fed = [[int(lg.argmax())] for lg in first]
+        active = torch.ones((len(prompts),), dtype=torch.bool, device=dev)
+        steps = []
+        for _ in range(TP_FED):
+            row = torch.tensor([ids[-1] for ids in fed], device=dev)
+            state, lg = model_runner.decode_step(params, state, row, active, cfg)
+            steps.append(lg)
+            for ids, tok in zip(fed, lg.argmax(dim=-1).tolist()):
+                ids.append(tok)
+        ref_first, ref_steps = torch.stack(first).cpu().numpy(), torch.stack(steps).cpu().numpy()
+        del state
+    torch.cuda.empty_cache()
+    return ref_first, ref_steps, fed
+
+
+def tp_ids_gate(name, runs, first, steps, fed):
+    """The served tp 2 greedy ids against tp 1's (prefill logits `first`,
+    decode logits `steps`, ids `fed`). They must be equal up to tp 1's first
+    near tie, a top-2 logit gap under TP_TOL of max|logits|. Where they
+    part, the context is still the same, so the token tp 2 took must fall
+    short of tp 1's top by under 2 TP_TOL of max|logits|, what two sets of
+    logits each within TP_TOL of the other allow. Prints where they part,
+    tp 1's top-2 gap there and the taken token's shortfall."""
+    every = np.concatenate([first[None], steps])  # [TP_FED + 1, P, V]
+    scale = np.abs(every).max(axis=-1)
+    top2 = np.sort(every, axis=-1)[..., -2:]
+    gaps = (top2[..., 1] - top2[..., 0]) / scale
+    gates = []
+    for i, (r, want) in enumerate(zip(runs, fed)):
+        got = r["token_ids"]
+        want = want[:len(got)]
+        lead = next((j for j, (a, b) in enumerate(zip(got, want)) if a != b), len(want))
+        tie = next((j for j, g in enumerate(gaps[:, i]) if g < TP_TOL), len(gaps))
+        gate = dict(prompt_tokens=r["prompt_tokens"], parted_at=None, first_near_tie=tie)
+        if lead < len(want):
+            lg = every[lead, i]
+            gate.update(parted_at=lead, gap=float(gaps[lead, i]),
+                        shortfall=float(lg.max() - lg[got[lead]]) / float(scale[lead, i]))
+        gates.append(gate)
+        parted = ("none part" if gate["parted_at"] is None else
+                  f"they part at token {lead}: tp 1's top-2 gap {gate['gap']:.3e} of "
+                  f"max|logits|, tp 2's token {gate['shortfall']:.3e} short of tp 1's top "
+                  f"(tol {2 * TP_TOL})")
+        print(f"  {name} tp 2 greedy ids ({r['prompt_tokens']} tokens): {got[:12]}..., the "
+              f"first {lead} of {len(want)} as tp 1's, whose first near tie (gap < {TP_TOL}) "
+              f"is at token {tie}; {parted}", flush=True)
+        if gate["parted_at"] is not None and (lead < tie or gate["shortfall"] >= 2 * TP_TOL):
+            raise SystemExit(f"phase T {name}: the served ids part from tp 1's where tp 1 has "
+                             f"no near tie: {gate}")
+    return gates
+
+
+def tp_logits_check(torch, params, card, prompts, devices):
+    """tp 1 on phase 3's weights in this process (tp1_greedy), then tp 2 on
+    `devices` fed the same ids: prefill and decode logits within TP_TOL of
+    max|ref|, rank 0's and rank 1's logits bit-equal, 32 B1a launches per
+    rank per prefill at H16/KV4."""
+    from ray_tpu_torch.models.config import get_config
+
+    cfg = get_config("llama3-8b")
+    dev = torch.device(devices[0])  # tp 1 runs on rank 0's card
+    ref_first, ref_steps, fed = tp1_greedy(torch, params, prompts, dev)
+    backend = "gloo" if len({str(d) for d in devices}) == 1 else "nccl"
+    print(f"  ranks on {devices} ({backend})", flush=True)
+    t0 = time.perf_counter()
+    got = tp_ranks_check(torch, devices, prompts, fed)
+    wall = time.perf_counter() - t0
+    r0 = got[0]
+    errs = dict(
+        prefill=[float(np.abs(r0["prefill"][i] - ref_first[i]).max()
+                       / np.abs(ref_first[i]).max()) for i in range(len(prompts))],
+        decode=[float(np.abs(r0["decode"][:, i] - ref_steps[:, i]).max()
+                      / np.abs(ref_steps[:, i]).max()) for i in range(len(prompts))])
+    same = len({r["digest"] for r in got.values()}) == 1
+    for r, out in sorted(got.items()):
+        print(f"  rank {r} ({out['backend']}): local heads q/kv {out['heads']}, B1a launches "
+              f"per prefill {out['launches']} at q/kv heads {out['heads_seen']}; seeded "
+              f"shard in {out['init_s']:.2f} s, start peak {out['start_peak'] / 2**30:.2f} GiB; "
+              f"{len(prompts)}-slot decode step {out['step_ms']:.3f} ms, collectives "
+              f"{out['collective_ms']:.3f} of {out['synced_step_ms']:.3f} ms "
+              f"({out['collectives']} calls, synced); {out['prefill_tokens']}-token prefill "
+              f"{out['prefill_ms']:.3f} ms, collectives {out['prefill_collective_ms']:.3f} of "
+              f"{out['synced_prefill_ms']:.3f} ms ({out['prefill_collectives']} calls, synced) "
+              f"[{TP_LABEL[backend]}; {card}]", flush=True)
+    print(f"  tp 2 vs tp 1 bf16 logits, max|d|/max|ref| per prompt: prefill "
+          f"{[f'{e:.3e}' for e in errs['prefill']]}, {TP_FED} fed decode steps "
+          f"{[f'{e:.3e}' for e in errs['decode']]} (tol {TP_TOL}); ranks bit-equal {same}; "
+          f"{wall:.1f} s", flush=True)
+    want_heads = [(cfg.n_heads // TP, cfg.n_kv_heads // TP)]
+    for out in got.values():
+        if out["launches"] != [cfg.n_layers] * len(prompts) or out["heads_seen"] != want_heads:
+            raise SystemExit(f"phase T: B1a launches {out['launches']} at {out['heads_seen']}, "
+                             f"want {cfg.n_layers} per prefill at {want_heads}")
+    if max(errs["prefill"] + errs["decode"]) > TP_TOL or not same:
+        raise SystemExit("phase T: tp 2 logits disagree with tp 1, or the ranks disagree")
+    return dict(devices=[str(d) for d in devices], backend=backend, errs=errs,
+                ranks_bit_equal=same, wall_s=wall, fed=fed, ref=(ref_first, ref_steps),
+                ranks={r: {k: v for k, v in out.items() if k not in ("prefill", "decode")}
+                       for r, out in got.items()})
+
+
+def tp_serve(torch, fa, card, devices, solo, **kw):
+    """LLMServer(LLMConfig(llama3-8b, tensor_parallel_size=2, **kw)) on
+    `devices`: three concurrent requests (completions, chat, streamed chat)
+    and the `solo` prompts one at a time, with rank 0's B1a count zeroed
+    just before and read just after; each request must finish with
+    "length"."""
+    from ray_tpu_torch.llm import LLMConfig, LLMServer, SamplingParams
+
+    cfg = LLMConfig(model_source="llama3-8b", tensor_parallel_size=TP, **kw)
+    t0 = time.perf_counter()
+    server = LLMServer(cfg, devices=devices)
+    start_s = time.perf_counter() - t0
+    eng = server.engine
+    body = {"max_tokens": TP_GEN, "temperature": 0.0}
+    try:
+        torch.cuda.synchronize()
+        fa.reset_launch_count()
+        prefills0 = eng.num_prefills
+        # ---- the tensor-parallel path: counts zeroed just before, read just after ----
+        plan = [("completions", {"prompt": prompt_text(100)}),
+                ("chat", {"messages": [{"role": "user", "content": prompt_text(300)}]}),
+                ("chat", {"messages": [{"role": "user", "content": prompt_text(40)}],
+                          "stream": True})]
+
+        def run(i):
+            kind, extra = plan[i]
+            resp = getattr(server, kind)({**body, **extra})
+            if extra.get("stream"):
+                frames = list(resp)
+                return json.loads(frames[-2][len("data: "):])["choices"][0]["finish_reason"]
+            return resp["choices"][0]["finish_reason"]
+
+        reasons, together_s = run_together(run, len(plan), timeout=300)
+        runs = []
+        for ids in solo:
+            t = time.perf_counter()
+            stamps, got = [], []
+            for out in eng.generate(ids, SamplingParams(max_tokens=TP_GEN, temperature=0.0,
+                                                        stop_token_ids=[-1])):
+                stamps.append(time.perf_counter())
+                got += out.token_ids
+            reasons.append(out.finish_reason)
+            runs.append(dict(prompt_tokens=out.num_prompt_tokens, ttft_ms=(stamps[0] - t) * 1e3,
+                             decode_tok_s=(len(stamps) - 1) / (stamps[-1] - stamps[0]),
+                             token_ids=got))
+        torch.cuda.synchronize()
+        launches = fa.launch_count()
+        prefills = eng.num_prefills - prefills0
+        # ---- end ----
+        server.check_health()
+        metrics = eng.metrics()
+        n_layers = eng.model_config.n_layers
+    finally:
+        server.shutdown()
+        del server, eng
+        torch.cuda.empty_cache()
+    print(f"  {kw or 'slot, bf16'}: up in {start_s:.1f} s; reasons {reasons}; {prefills} "
+          f"prefills, rank 0's B1a launches {launches}; together {together_s:.2f} s; "
+          + "; ".join(f"solo {r['prompt_tokens']} tokens TTFT {r['ttft_ms']:.1f} ms, decode "
+                      f"{r['decode_tok_s']:.2f} tok/s" for r in runs)
+          + f" [{TP_LABEL['gloo']}; {card}]", flush=True)
+    if any(r != "length" for r in reasons) or launches != n_layers * prefills or not prefills:
+        raise SystemExit(f"phase T serving {kw}: reasons {reasons}, B1a {launches} for "
+                         f"{prefills} prefills")
+    return dict(config=kw, start_s=start_s, reasons=reasons, together_s=together_s,
+                solo=runs, launches=launches, prefills=prefills, metrics=metrics)
+
+
+def tp_path(torch, fa, card, params):
+    """Phase T: the logits check on two ranks sharing cuda:0 over gloo (and
+    over NCCL on cuda:0,1 where there are two cards), then LLMServer at
+    tensor_parallel_size=2 in the slot and paged layouts and in int8, on
+    phase 3's solo prompts (their tails that leave room for TP_GEN tokens,
+    as the engine keeps them)."""
+    from ray_tpu_torch.llm.tokenizer import get_tokenizer
+    from ray_tpu_torch.ops.quant import quantize_llama_params
+
+    t_phase = time.perf_counter()
+    tok = get_tokenizer("byte")
+    prompts = [tok.encode(prompt_text(n))[-(1024 - TP_GEN):] for n in SOLO_CHARS]
+    shared = ["cuda:0"] * TP
+    out = {"logits": {"gloo": tp_logits_check(torch, params, card, prompts, shared)}}
+    if torch.cuda.device_count() >= TP:
+        out["logits"]["nccl"] = tp_logits_check(torch, params, card, prompts,
+                                                [f"cuda:{r}" for r in range(TP)])
+    else:
+        print(f"  NCCL across cards: not run ({torch.cuda.device_count()} card)", flush=True)
+    # TTFT per bucket in the slot layout; the paged engine serves the
+    # concurrent requests with the prefix cache off (every prefill whole, B1a
+    # n_layers times each); int8 one solo prompt for its greedy ids
+    out["slot"] = tp_serve(torch, fa, card, shared, prompts)
+    out["paged"] = tp_serve(torch, fa, card, shared, [], enable_prefix_caching=False, **PAGED)
+    out["int8"] = tp_serve(torch, fa, card, shared, prompts[:1], quantization="int8")
+    # the served ids against tp 1's greedy ids (prefill + TP_FED steps): bf16
+    # on phase 3's weights, int8 on them quantized as the tp 2 engine's
+    # seeded init quantizes them
+    bf16 = out["logits"]["gloo"]
+    out["slot"]["ids_gate"] = tp_ids_gate("slot", out["slot"]["solo"], *bf16.pop("ref"),
+                                          bf16["fed"])
+    for extra in out["logits"].values():
+        extra.pop("ref", None)
+    qparams = quantize_llama_params(params)
+    first8, steps8, fed8 = tp1_greedy(torch, qparams, prompts[:1], torch.device("cuda:0"))
+    del qparams
+    torch.cuda.empty_cache()
+    out["int8"].update(tp1_ids=fed8,
+                       ids_gate=tp_ids_gate("int8", out["int8"]["solo"], first8, steps8, fed8))
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(f"  phase T took {out['wall_s']:.1f} s", flush=True)
+    return out
+
+
 def ptxas_report(_build):
     """Print each kernel's registers and spills from its library's build log
     (nvcc -Xptxas -v); return {kernel: (spill store bytes, spill load bytes)}."""
@@ -4208,6 +4654,10 @@ def main() -> int:
     print("[4] served model output against the plain path", flush=True)
     numerics = output_check(torch)
 
+    print("[T] tensor parallelism: llama3-8b at tp 2 on one card, against tp 1 on phase 3's "
+          "weights, and served", flush=True)
+    tp_served = tp_path(torch, fa, card, params)
+
     print("[5] paged serving: llama3-8b with bench_serve's paged settings", flush=True)
     paged_served = paged_path(torch, fa, card, params)
 
@@ -4299,6 +4749,9 @@ def main() -> int:
                                       for r in spec_served[layout].values())
     kernels[0]["launches_moe"] = moe_served["launches"]
     kernels[0]["launches_pd"] = pd_served["launches"]
+    kernels[0]["launches_tp"] = {  # per rank per prefill at H16/KV4; rank 0 while served
+        "per_rank_per_prefill": tp_served["logits"]["gloo"]["ranks"][0]["launches"],
+        **{name: tp_served[name]["launches"] for name in ("slot", "paged", "int8")}}
     kernels[0]["design"] = (
         "bf16: a producer warpgroup keeps a 3-stage TMA ring of 128-row K/V tiles "
         "(mbarrier full/empty); two consumer warpgroups of 64 q rows run S = QK^T and "
@@ -4322,7 +4775,8 @@ def main() -> int:
     report = dict(card=card, torch=torch.__version__, cuda=torch.version.cuda,
                   build_s=build_s, sass=sass, checks=checks, backward_checks=bwd_checks,
                   timings=timings, training_timings=train_timings, sdpa_backward=sdpa_bwd,
-                  served=served, numerics=numerics, paged=paged_served,
+                  served=served, numerics=numerics, tensor_parallel=tp_served,
+                  paged=paged_served,
                   int8=quant_served, spec=spec_served, pd=pd_served,
                   trained=trained_runs, train_numerics=train_check, moe=moe_served,
                   checkpoint=ckpt_served, moe_trained=moe_trained, rl=rl,

@@ -1,6 +1,6 @@
-"""LLM serving and batch inference on one CUDA device: engine, model runner,
-sampling, the server with its OpenAI and P/D routers, and the batch
-``Processor``."""
+"""LLM serving and batch inference on one CUDA device, or on a tensor-parallel
+mesh of ranks (``tp_worker``): engine, model runner, sampling, the server
+with its OpenAI and P/D routers, and the batch ``Processor``."""
 from .config import LLMConfig, SamplingParams, SpecConfig
 from .engine import LLMEngine, RequestOutput, TorchLLMEngine
 from .server import (LLMServer, OpenAIRouter, PDRouter, build_openai_app,

@@ -202,11 +202,12 @@ class PrepareImageStage:
 
 class LLMEngineStage:
     """Stateful UDF running generation (reference vllm_engine_stage.py) on a
-    TorchLLMEngine on `device` (default CUDA)."""
+    TorchLLMEngine on `device` (default CUDA), or on `devices` (one per
+    rank) under tensor parallelism."""
 
     def __init__(self, llm_config: LLMConfig, sampling_params: Optional[Dict[str, Any]] = None,
-                 device=None):
-        self.engine = TorchLLMEngine(llm_config, device=device)
+                 device=None, devices=None):
+        self.engine = TorchLLMEngine(llm_config, device=device, devices=devices)
         self.engine.start()
         self.params = SamplingParams(**(sampling_params or {}))
 
@@ -260,11 +261,12 @@ def build_llm_processor(
     prepare_images: bool = False,
     image_size=(224, 224),
     device=None,
+    devices=None,
 ) -> Processor:
     """Build the standard chat->generate processor (reference build_llm_processor).
     prepare_images=True inserts the VLM image stage (pixel tensors resolved
-    from image refs / vision messages) ahead of generation. `device` passes
-    to every LLMEngineStage."""
+    from image refs / vision messages) ahead of generation. `device` and
+    `devices` pass to every LLMEngineStage."""
 
     stages: List[Any] = []
     if preprocess is not None:
@@ -277,7 +279,7 @@ def build_llm_processor(
     stages.append(
         lambda ds: ds.map_batches(
             LLMEngineStage,
-            fn_constructor_args=(llm_config, sampling_params, device),
+            fn_constructor_args=(llm_config, sampling_params, device, devices),
             batch_size=batch_size,
             concurrency=concurrency,
         )

@@ -2,7 +2,8 @@
 
 The JAX package's fields that the port serves, and those that select what
 it does not serve yet: the slot and paged KV layouts (with the prefix cache)
-on one device, with whole-prompt or chunked prefill, n-gram speculative
+on one device or, for a dense model, over ``tensor_parallel_size`` ranks,
+with whole-prompt or chunked prefill, n-gram speculative
 decoding and int8 weights (W8A16), for dense and mixture-of-experts models
 (``engine_kwargs`` overrides the model config, e.g. its
 ``moe_capacity_factor``), from a registry name, a ModelConfig or a local
@@ -107,7 +108,9 @@ class LLMConfig:
     speculative: Optional[Union[SpecConfig, Dict[str, Any]]] = None
     # None, or "int8": per-output-channel int8 weights, bf16 activations (W8A16)
     quantization: Optional[str] = None
-    tensor_parallel_size: int = 1  # > 1: ROADMAP A6
+    # ranks that shard heads, MLP and vocabulary (a dense model); the engine
+    # is rank 0 and starts the others (llm/tp_worker.py)
+    tensor_parallel_size: int = 1
     data_parallel_size: int = 1
     expert_parallel_size: int = 1
     pipeline_parallel_size: int = 1
@@ -134,10 +137,12 @@ class LLMConfig:
                 "'ngram' (prompt lookup) is implemented")
         if self.quantization and self.quantization != "int8":
             raise ValueError(f"unknown quantization {self.quantization!r} (supported: int8)")
-        for name in ("tensor_parallel_size", "data_parallel_size",
-                     "expert_parallel_size", "pipeline_parallel_size"):
+        for name, item in (("data_parallel_size", "A2f, A6"), ("expert_parallel_size", "A6"),
+                           ("pipeline_parallel_size", "A6")):
             if getattr(self, name) != 1:
-                raise NotImplementedError(f"{name} > 1: ROADMAP A6")
+                raise NotImplementedError(f"{name} > 1: ROADMAP {item}")
+        if self.tensor_parallel_size > 1:
+            self._check_tensor_parallel()
         if self.kv_layout == "paged":
             if self.max_model_len % self.kv_block_size:
                 raise ValueError("max_model_len must be a multiple of kv_block_size")
@@ -149,6 +154,24 @@ class LLMConfig:
         if self.prefill_chunk and self.max_model_len % self.prefill_chunk:
             # a chunk-padded prompt never exceeds max_model_len
             raise ValueError("max_model_len must be a multiple of prefill_chunk")
+
+    def _check_tensor_parallel(self) -> None:
+        """tp > 1 serves a dense model whose heads, kv heads, MLP width and
+        vocabulary each divide over the ranks."""
+        tp, cfg = self.tensor_parallel_size, self.resolve_model_config()
+        if cfg.n_experts > 0:
+            raise NotImplementedError(
+                "tensor_parallel_size > 1 with a mixture-of-experts model (the experts' "
+                "mlp axis and ep): ROADMAP A6")
+        for field in ("n_heads", "n_kv_heads", "d_ff", "vocab_size"):
+            if getattr(cfg, field) % tp:
+                raise ValueError(f"{field} ({getattr(cfg, field)}) is not divisible by "
+                                 f"tensor_parallel_size ({tp})")
+
+    def kv_pool_blocks(self) -> int:
+        """Blocks in the paged pool: num_kv_blocks, else the slot layout's
+        token capacity."""
+        return self.num_kv_blocks or self.max_num_seqs * self.max_model_len // self.kv_block_size
 
     def resolve_decode_steps(self) -> int:
         """Configured fused burst width; 0 means auto-tune (engine-side)."""

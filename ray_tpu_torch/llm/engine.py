@@ -1,5 +1,5 @@
-"""LLMEngine ABC + TorchLLMEngine: continuous batching on one CUDA device
-(port of ray_tpu/llm/engine.py, slot and paged layouts).
+"""LLMEngine ABC + TorchLLMEngine: continuous batching on one CUDA device or
+a tensor-parallel mesh (port of ray_tpu/llm/engine.py, slot and paged layouts).
 
 A scheduler thread (1) admits waiting requests into free cache slots with a
 whole-prompt prefill padded to a bucket, or a chunked one, (2) advances every
@@ -36,6 +36,16 @@ host path, as the JAX engine's does when its device plane is down; the
 device-plane handoff (``kv_handle`` results, paged streaming) is ROADMAP A10.
 ``metrics()`` has every key of the JAX engine's; its Prometheus export and
 the request spans are ROADMAP A11, as is pipeline parallelism's A6.
+
+Every device call goes through ``_run(op, *args)`` on the engine's
+``tp_worker.ShardRunner``, with host arguments. With tensor_parallel_size =
+N > 1 the engine is rank 0 of an N-rank mesh over ``devices`` (cuda:0..N-1
+by default; gloo when ranks share a card or run on the CPU): ``start()``
+spawns N - 1 followers, ``_run`` announces each call to them first, and
+``shutdown()`` stops, joins and, past a timeout, kills them. A follower's
+death or exception, or any failed call under tp, finishes the in-flight
+requests with "error" (within the group timeout), fails every later one,
+and makes ``health_error()`` say why. P/D under tp > 1 is ROADMAP A6.
 """
 from __future__ import annotations
 
@@ -53,15 +63,13 @@ import numpy as np
 import torch
 
 from ray_tpu_torch.device import resolve_device
-from ray_tpu_torch.models import checkpoint, llama
-from ray_tpu_torch.models.config import torch_dtype
-from ray_tpu_torch.ops.quant import QTensor, quantize_llama_params
 
-from . import model_runner, paged
+from . import paged
 from . import config as llm_config
 from .config import (ENGINE_IDLE_WAIT_S, FUSED_STEPS_MAX, FUSED_SYNC_TARGET,
                      LLMConfig, SamplingParams)
 from .tokenizer import get_tokenizer
+from .tp_worker import PING_S, Followers, ShardRunner
 
 LOGGER = logging.getLogger(__name__)
 
@@ -91,6 +99,11 @@ class LLMEngine(abc.ABC):
 
     @abc.abstractmethod
     def shutdown(self) -> None: ...
+
+
+def _sampling(p: SamplingParams) -> tuple:
+    """A request's (temperature, top_p, top_k), as the runner's calls take them."""
+    return (p.temperature, p.top_p, p.top_k)
 
 
 def _pow2_floor(n: int) -> int:
@@ -124,14 +137,31 @@ class TorchLLMEngine(LLMEngine):
     int8 ``QTensor`` leaves in `params` (an engine's quantized weights, or a
     bridged int8 tree) are moved to the device as they are.
     `device` defaults to CUDA and raises when there is none; pass "cpu" for
-    the plain path."""
+    the plain path. Under tensor_parallel_size = N > 1, `devices` names
+    rank r's device for each of the N ranks (this process is rank 0); it
+    defaults to N CPU ranks when `device` is "cpu", else to cuda:0..N-1."""
 
-    def __init__(self, config: LLMConfig, params=None, device=None):
+    def __init__(self, config: LLMConfig, params=None, device=None, devices=None):
         self.config = config
         self.model_config = config.resolve_model_config()
         self.tokenizer = get_tokenizer(config.resolve_tokenizer_name())
+        tp = config.tensor_parallel_size
+        if devices is None and tp > 1:
+            cpu = device is not None and torch.device(device).type == "cpu"
+            devices = ["cpu"] * tp if cpu else [f"cuda:{r}" for r in range(tp)]
+        if devices is not None:
+            if len(devices) != tp:
+                raise ValueError(f"{len(devices)} devices for tensor_parallel_size {tp}")
+            devices = [resolve_device(d) for d in devices]
+            device = devices[0]
         self.device = resolve_device(device)
+        self.devices = devices
         self._params_in = params
+        self._runner: Optional[ShardRunner] = None
+        self._followers: Optional[Followers] = None
+        self._run_lock = threading.Lock()
+        self._tp_error: Optional[str] = None  # why the tensor-parallel group failed
+        self._last_run = time.monotonic()
         self._started = False
         self._shutdown = False
         self._waiting: "queue.Queue[_Request]" = queue.Queue()
@@ -145,9 +175,7 @@ class TorchLLMEngine(LLMEngine):
         # here, so a stale abort can never poison a later request reusing the id
         self._requests: Dict[str, _Request] = {}
         self._aborted: set = set()
-        self.state = None  # model_runner.DecodeState | paged.PagedState
         self._blocks = None  # paged: the host-side block manager
-        self._pops: Optional[paged.PagedOps] = None
         self._admissions = itertools.count(1)
         self._fused_auto = False
         self._fused_fixed = 1
@@ -175,46 +203,34 @@ class TorchLLMEngine(LLMEngine):
         when config.quantization says so (thread-safe, idempotent); a
         checkpoint directory's load and the seeded init quantize piece by
         piece as they go. The KV state and the scheduler loop start on first
-        use."""
+        use; under tensor parallelism the followers start here, and the KV
+        state and the loop with them (P/D, which needs neither, is not
+        served under tp)."""
         with self._start_lock:
             if self._started:
                 return
-            cfg, c = self.model_config, self.config
+            c = self.config
             k_cfg = c.resolve_decode_steps()
             self._fused_auto = k_cfg == 0
             self._fused_fixed = 1 if self._fused_auto else _pow2_floor(k_cfg)
-            dtype = torch_dtype(c.dtype)
             if c.quantization and c.quantization != "int8":
                 # before any checkpoint byte is read (ray_tpu/llm/engine.py:303)
                 raise ValueError(f"unknown quantization {c.quantization!r} (supported: int8)")
-            if self._params_in is not None:
-                def place(v):
-                    if isinstance(v, QTensor):
-                        return QTensor(v.q.to(self.device), v.s.to(self.device))
-                    return v.to(self.device, dtype)
+            mesh = None
+            if c.tensor_parallel_size > 1:
+                if self.device.type == "cuda":
+                    from ray_tpu_torch.ops import _build
 
-                self.params = {
-                    name: ({k: place(v) for k, v in val.items()}
-                           if name == "layers" else place(val))
-                    for name, val in self._params_in.items()}
-                if c.quantization:
-                    # on the device, one layer at a time (ray_tpu/llm/engine.py:325-331)
-                    self.params = quantize_llama_params(self.params)
-            elif checkpoint.looks_like_checkpoint_dir(c.model_source):
-                # real weights, streamed piece by piece into preallocated
-                # leaves; int8 quantizes each piece as it arrives
-                self.params = checkpoint.load_llama_params(
-                    c.model_source, cfg, device=self.device, dtype=dtype,
-                    quantize_int8=bool(c.quantization))
-            else:
-                # int8: each layer quantized as it is drawn, never the whole
-                # float model at once
-                self.params = llama.init(cfg, seed=0, device=self.device, dtype=dtype,
-                                         quantize_int8=bool(c.quantization))
+                    _build.build("flash_fwd")  # once, before N processes load it
+                self._followers = Followers(c, self.devices, self._params_in)
+                mesh = self._followers.mesh
+            try:
+                self._runner = ShardRunner(c, self.device, mesh, self._params_in)
+            except BaseException:
+                self._stop_followers(announce=False)
+                raise
             self._params_in = None
             self._active = {s: None for s in range(c.max_num_seqs)}
-            self._gen = torch.Generator(device=self.device)
-            self._gen.manual_seed(0)
             n = c.max_num_seqs
             # host mirrors of per-slot sampling params
             self._temp = np.zeros((n,), np.float32)
@@ -222,6 +238,50 @@ class TorchLLMEngine(LLMEngine):
             self._top_k = np.zeros((n,), np.int64)
             self._last_tokens = np.zeros((n,), np.int64)
             self._started = True
+        if self._followers is not None:
+            self._ensure_decode_started()
+
+    @property
+    def params(self):
+        """This rank's weights (None before start)."""
+        return None if self._runner is None else self._runner.params
+
+    @property
+    def state(self):
+        """The decode KV state on this rank (None before first decode use)."""
+        return None if self._runner is None else self._runner.state
+
+    def _run(self, op: str, *args):
+        """Make one device call on the ShardRunner; under tensor parallelism
+        announce it to the followers first. Any failure under tp leaves the
+        group out of step: the followers are killed and every later call
+        raises."""
+        if self._followers is None:
+            return getattr(self._runner, op)(*args)
+        with self._run_lock:
+            if self._tp_error is not None:
+                raise RuntimeError(f"the tensor-parallel group failed: {self._tp_error}")
+            self._last_run = time.monotonic()
+            try:
+                self._followers.announce(op, args)
+                return getattr(self._runner, op)(*args)
+            except Exception as e:
+                self._tp_error = f"{op}: {e!r}"
+                self._followers.kill()
+                raise
+
+    def health_error(self) -> Optional[str]:
+        """Why the engine cannot serve (its tensor-parallel group failed or
+        a follower is gone), or None."""
+        if self._tp_error is not None:
+            return f"tensor-parallel group failed: {self._tp_error}"
+        gone = self._followers.dead() if self._followers is not None else None
+        return f"tensor-parallel follower {gone}" if gone else None
+
+    def _stop_followers(self, announce: bool) -> None:
+        f, self._followers = self._followers, None
+        if f is not None:
+            f.stop(announce)
 
     def _ensure_decode_started(self) -> None:
         """Allocate the decode KV state + scheduler loop on first decode use."""
@@ -229,29 +289,32 @@ class TorchLLMEngine(LLMEngine):
             if self._loop_thread is not None:
                 return
             c = self.config
-            if self.state is None and c.kv_layout == "paged":
-                num_blocks = c.num_kv_blocks or (
-                    c.max_num_seqs * c.max_model_len // c.kv_block_size)
-                self._blocks = paged.make_block_manager(
-                    num_blocks, c.kv_block_size, c.max_model_len // c.kv_block_size,
-                    c.max_num_seqs, enable_prefix_caching=c.enable_prefix_caching)
-                self._pops = paged.PagedOps(self.model_config)
-                self.state = paged.init_paged_state(
-                    self.model_config, c.max_num_seqs, c.max_model_len, num_blocks,
-                    c.kv_block_size, self.device)
-            elif self.state is None:
-                self.state = model_runner.init_state(
-                    self.model_config, c.max_num_seqs, c.max_model_len, self.device)
+            if self.state is None:
+                if c.kv_layout == "paged":
+                    self._blocks = paged.make_block_manager(
+                        c.kv_pool_blocks(), c.kv_block_size,
+                        c.max_model_len // c.kv_block_size, c.max_num_seqs,
+                        enable_prefix_caching=c.enable_prefix_caching)
+                self._run("init_state")
             self._measure_host_rt()
             self._loop_thread = threading.Thread(target=self._loop, daemon=True,
                                                  name="llm-engine")
             self._loop_thread.start()
 
     def shutdown(self) -> None:
+        """Stop the loop; under tp, stop the followers (joined within a
+        timeout, then killed) and leave the process group."""
         self._shutdown = True
         self._wakeup.set()
         if self._loop_thread is not None:
             self._loop_thread.join(timeout=5)
+        if self._followers is not None:
+            in_step = self._tp_error is None and self._run_lock.acquire(timeout=5)
+            try:
+                self._stop_followers(announce=in_step)
+            finally:
+                if in_step:
+                    self._run_lock.release()
 
     # -- fused-burst auto-tune ----------------------------------------------------
     def _measure_host_rt(self, samples: int = 3) -> None:
@@ -331,12 +394,6 @@ class TorchLLMEngine(LLMEngine):
         limit = max(1, self.config.max_model_len - params.max_tokens)
         return ids[-limit:] if len(ids) > limit else ids
 
-    def _pad_to_bucket(self, prompt_ids: List[int]) -> torch.Tensor:
-        s_pad = next(b for b in self.config.buckets() if b >= len(prompt_ids))
-        tokens = np.zeros((1, s_pad), np.int64)
-        tokens[0, : len(prompt_ids)] = prompt_ids
-        return torch.from_numpy(tokens).to(self.device)
-
     # -- API ---------------------------------------------------------------------
     def generate(self, prompt, params: SamplingParams, request_id: Optional[str] = None
                  ) -> Iterator[RequestOutput]:
@@ -350,6 +407,9 @@ class TorchLLMEngine(LLMEngine):
         with self._lock:
             self.num_pending += 1
             self._requests[req.id] = req
+        if self._tp_error is not None:  # nothing more runs on a failed group
+            self._fail_request(req, "error")
+            return iter([req.out_queue.get()])
         self._waiting.put(req)
         self._wakeup.set()
 
@@ -374,10 +434,11 @@ class TorchLLMEngine(LLMEngine):
         "k", "v"} and "first_text" when the first token renders alone (not a
         stop token, not a partial UTF-8 codepoint). Every result takes the
         host path, so `force_host` changes nothing here."""
+        self._refuse_pd_under_tp()
         self.start()
         prompt_ids = self._encode_prompt(prompt, params)
-        k, v, last_logits = self._prefill_kv_tensors(prompt_ids)
-        tok = self._sample_one(last_logits, params)
+        k, v, last_logits = self._run("prefill_kv", prompt_ids)
+        tok = int(self._run("sample_one", last_logits, *_sampling(params))[0])
         with self._lock:
             self.num_prefills += 1
         out: Dict[str, Any] = {"prompt_ids": prompt_ids, "first_token": tok}
@@ -408,12 +469,19 @@ class TorchLLMEngine(LLMEngine):
         call, not at the first next(), for a device-plane handle."""
         if "kv_handle" in prefill_result:
             raise NotImplementedError("device-plane KV handoff: ROADMAP A10")
+        self._refuse_pd_under_tp()
         self.start()
         self._ensure_decode_started()
         return self._submit(_Request(
             request_id or uuid.uuid4().hex, list(prefill_result["prompt_ids"]), params,
             prefill_kv=(prefill_result["k"], prefill_result["v"],
                         int(prefill_result["first_token"]))))
+
+    def _refuse_pd_under_tp(self) -> None:
+        if self.config.tensor_parallel_size > 1:
+            raise NotImplementedError(
+                "P/D (prefill_only / generate_from_prefill) under tensor parallelism: "
+                "ROADMAP A6")
 
     def generate_sync(self, prompt, params: SamplingParams) -> RequestOutput:
         """Collect the full generation into one RequestOutput."""
@@ -508,7 +576,7 @@ class TorchLLMEngine(LLMEngine):
         the prompt is prefilled into blocks (paged), chunk by chunk into a
         slot, or whole into a slot. A paged request the pool cannot take yet
         goes back to the queue, and admission stops for this cycle."""
-        cfg, c = self.model_config, self.config
+        c = self.config
         for slot in [s for s, r in self._active.items() if r is None]:
             try:
                 req = self._waiting.get_nowait()
@@ -539,18 +607,10 @@ class TorchLLMEngine(LLMEngine):
                 if tok is None:
                     self._admitting = None
                     return  # requeued (pool busy) or failed: stop admitting
-            elif c.prefill_chunk and len(req.prompt_ids) > c.prefill_chunk:
-                # chunked prefill into a slot: bounded activation memory, then
-                # the assembled KV is installed at once
-                k, v, last_logits = self._prefill_kv_tensors(req.prompt_ids)
-                self.state = model_runner.install_kv(self.state, k, v,
-                                                     len(req.prompt_ids), slot)
-                tok = self._sample_one(last_logits, p)
             else:
-                tokens = self._pad_to_bucket(req.prompt_ids)
-                self.state, last_logits = model_runner.prefill(
-                    self.params, self.state, tokens, len(req.prompt_ids), slot, cfg)
-                tok = self._sample_one(last_logits, p)
+                # whole, or chunk by chunk (bounded activation memory) and
+                # then installed at once
+                tok = int(self._run("prefill", req.prompt_ids, slot, _sampling(p))[0])
             self._note_prefill(req, time.perf_counter() - t0)
             if not transferred:
                 self.num_prefills += 1
@@ -583,23 +643,16 @@ class TorchLLMEngine(LLMEngine):
             if not self._blocks.can_allocate(needed):
                 self._waiting.put(req)  # prefill_kv intact; retried next cycle
                 return None
-            self._install_paged(slot, self._to_device(k), self._to_device(v), n, needed)
+            self._run("install_transfer", slot, k, v, n, self._blocks.allocate(slot, needed))
         elif k.shape[2] > c.max_model_len:
             # a transfer padded past this engine's slot width fails only
             # this request (install_kv would raise in the loop)
             self._fail_request(req, "length")
             return None
         else:
-            self.state = model_runner.install_kv(self.state, self._to_device(k),
-                                                 self._to_device(v), n, slot)
+            self._run("install_transfer", slot, k, v, n, None)
         req.prefill_kv = None
         return tok
-
-    def _to_device(self, x) -> torch.Tensor:
-        """A transferred KV array (a tensor, or an f32 numpy array) on this
-        engine's device."""
-        t = x if isinstance(x, torch.Tensor) else torch.tensor(np.asarray(x))
-        return t.to(self.device)
 
     def _note_prefill(self, req: _Request, wall_s: float) -> None:
         """Fold one admission's prefill wall time into the per-computed-token
@@ -611,34 +664,6 @@ class TorchLLMEngine(LLMEngine):
             0.3 * per_tok + 0.7 * self._prefill_per_tok_s)
 
     # -- paged KV (ray_tpu/llm/engine.py:1195-1450) --------------------------------
-    def _prefill_kv_tensors(self, prompt: List[int]):
-        """(k, v, last_logits) of a prompt: chunked when it is longer than
-        prefill_chunk, else one detached prefill padded to a bucket."""
-        cfg, c = self.model_config, self.config
-        if c.prefill_chunk and len(prompt) > c.prefill_chunk:
-            return paged.chunked_prefill(self.params, prompt, cfg, c.prefill_chunk,
-                                         self.device)
-        return model_runner.prefill_detached(self.params, self._pad_to_bucket(prompt),
-                                             len(prompt), cfg)
-
-    @staticmethod
-    def _pad_blocks(k: torch.Tensor, v: torch.Tensor, n_blocks: int, bs: int):
-        """Zero-pad prefill KV [L, 1, S, ...] along S to n_blocks * bs rows."""
-        extra = n_blocks * bs - k.shape[2]
-        if extra <= 0:
-            return k, v
-        pad = (0, 0, 0, 0, 0, extra)
-        return torch.nn.functional.pad(k, pad), torch.nn.functional.pad(v, pad)
-
-    def _install_paged(self, slot: int, k, v, n: int, needed: int) -> None:
-        """Allocate `needed` blocks (the caller checked that they are free)
-        and install the prefill KV [L, 1, S_pad, ...] into them."""
-        bs = self.config.kv_block_size
-        block_ids = self._blocks.allocate(slot, needed)
-        k, v = self._pad_blocks(k, v, needed, bs)
-        self.state = self._pops.install_prefill(self.state, k, v, block_ids, n, slot,
-                                                needed)
-
     def _prefill_paged(self, req: _Request, slot: int) -> Optional[int]:
         """Prefill into allocated blocks -> the first sampled token, or None
         when the request was not admitted (requeued or failed). With the
@@ -680,14 +705,14 @@ class TorchLLMEngine(LLMEngine):
         if not self._blocks.can_allocate(needed):
             self._waiting.put(req)  # stays pending; retried next cycle
             return None
-        k, v, last_logits = self._prefill_kv_tensors(prompt)
-        self._install_paged(slot, k, v, n, needed)
+        tok = self._run("prefill_paged", prompt, slot, self._blocks.allocate(slot, needed),
+                        _sampling(req.params))
         # publish the prompt's full blocks for later prefix hits, unless no
         # hit of this size could pay (a longer prompt shares <= max_hit tokens)
         if max_hit >= min_hit:
             self._blocks.register_blocks(slot, prompt, self._blocks.owned[slot],
                                          skip_blocks=0)
-        return self._sample_one(last_logits, req.params)
+        return int(tok[0])
 
     def _prefix_min_hit_tokens(self) -> int:
         """Cached-token floor below which a prefix hit is skipped:
@@ -710,8 +735,7 @@ class TorchLLMEngine(LLMEngine):
         bs, n = c.kv_block_size, len(prompt)
         cached_tokens = len(cached_ids) * bs
         suffix = prompt[cached_tokens:]
-        tokens = self._pad_to_bucket(suffix)
-        s_pad = tokens.shape[1]
+        s_pad = next(b for b in c.buckets() if b >= len(suffix))
         needed_new = self._blocks.blocks_needed(max(n + 1 - cached_tokens, s_pad))
         total = len(cached_ids) + needed_new
         if total > self._blocks.max_fit(slot):
@@ -722,18 +746,13 @@ class TorchLLMEngine(LLMEngine):
             self._blocks.release(slot)
             self._waiting.put(req)
             return None
-        k_suf, v_suf, last_logits = self._pops.prefill_suffix_from_state(
-            self.params, self.state, cached_ids, tokens, len(suffix), len(cached_ids))
         new_ids = self._blocks.allocate(slot, needed_new)
-        k_suf, v_suf = self._pad_blocks(k_suf, v_suf, needed_new, bs)
-        row = np.zeros((self._blocks.max_blocks,), np.int64)
-        row[:total] = cached_ids + new_ids
-        self.state = self._pops.install_with_prefix(
-            self.state, k_suf, v_suf, new_ids, row, n, slot, needed_new)
+        tok = self._run("prefill_prefix", suffix, n, slot, cached_ids, new_ids,
+                        _sampling(req.params))
         self._blocks.register_blocks(slot, prompt, cached_ids + new_ids,
                                      skip_blocks=len(cached_ids))
         self._blocks.hit_tokens += cached_tokens  # counted only on success
-        return self._sample_one(last_logits, req.params)
+        return int(tok[0])
 
     def _grow_or_preempt(self, headroom: int = 1, steps=None) -> None:
         """Before a decode burst: every active slot whose writes in the burst
@@ -760,7 +779,7 @@ class TorchLLMEngine(LLMEngine):
                 if self._blocks.num_free > 0:
                     (bid,) = self._blocks.allocate(slot, 1)
                     index = self._blocks.slot_capacity(slot) // bs - 1
-                    self.state = self._pops.append_block(self.state, slot, index, bid)
+                    self._run("append_block", slot, index, bid)
                     continue
                 victim = max((r for r in self._active.values() if r is not None),
                              key=lambda r: r.admitted_at)
@@ -777,15 +796,6 @@ class TorchLLMEngine(LLMEngine):
             self.num_active -= 1
             self.num_pending += 1
         self._waiting.put(req)
-
-    def _sample_one(self, last_logits: torch.Tensor, p: SamplingParams) -> int:
-        dev = self.device
-        return int(model_runner.sample_tokens(
-            last_logits[None, :],
-            torch.tensor([p.temperature], dtype=torch.float32, device=dev),
-            torch.tensor([p.top_p], dtype=torch.float32, device=dev),
-            torch.tensor([p.top_k], dtype=torch.int64, device=dev),
-            self._gen)[0])
 
     def _emit(self, req: _Request, tok: int) -> None:
         req.generated += 1
@@ -862,16 +872,11 @@ class TorchLLMEngine(LLMEngine):
             m = min(m, max(1, min(kv_room, budget) // wlen))
         return _pow2_floor(m)
 
-    def _sampling_tensors(self):
-        dev = self.device
-        return (torch.from_numpy(self._temp).to(dev), torch.from_numpy(self._top_p).to(dev),
-                torch.from_numpy(self._top_k).to(dev))
-
     def _step_decode_spec_fused(self, m: int) -> None:
         """m speculative windows fused per host sync: the n-gram proposal runs
         ON THE DEVICE against a per-slot history buffer, so the windows chain
         without host round trips (model_runner.spec_multi)."""
-        c, dev = self.config, self.device
+        c = self.config
         k = c.num_speculative_tokens
         active_mask = np.array([r is not None for r in self._active.values()], bool)
         if not active_mask.any():
@@ -886,18 +891,10 @@ class TorchLLMEngine(LLMEngine):
             if req is not None:
                 hist[slot, :len(req.token_history)] = req.token_history
                 hlen[slot] = len(req.token_history)
-        hist_t, hlen_t, active = (torch.from_numpy(a).to(dev)
-                                  for a in (hist, hlen, active_mask))
-        temp, top_p, top_k = self._sampling_tensors()
         t0 = time.perf_counter()
-        if self._blocks is not None:
-            self.state, toks_m, acc_m, drafted_m = self._pops.spec_multi(
-                self.params, self.state, hist_t, hlen_t, active, temp, top_p, top_k, m, k,
-                c.ngram_prompt_lookup_max, generator=self._gen)
-        else:
-            self.state, toks_m, acc_m, drafted_m = model_runner.spec_multi(
-                self.params, self.state, hist_t, hlen_t, active, self.model_config, temp,
-                top_p, top_k, m, k, c.ngram_prompt_lookup_max, generator=self._gen)
+        toks_m, acc_m, drafted_m = self._run(
+            "spec_multi", hist, hlen, active_mask, self._temp, self._top_p, self._top_k, m, k,
+            c.ngram_prompt_lookup_max)
         # the one fetch of the burst
         toks_m, acc_m, drafted_m = (t.cpu().numpy() for t in (toks_m, acc_m, drafted_m))
         # keeps the auto-K probe live in fused-spec mode (per-window cost)
@@ -941,7 +938,7 @@ class TorchLLMEngine(LLMEngine):
         bonus token all emit this step (greedy slots only; the others ride
         along with no drafts). With a fused burst target > 1, m windows run
         on the device per host sync instead."""
-        c, dev = self.config, self.device
+        c = self.config
         k = c.num_speculative_tokens
         if self.decode_steps_target() > 1:
             m = self._spec_burst_width()
@@ -975,18 +972,9 @@ class TorchLLMEngine(LLMEngine):
             window[slot, 1:1 + len(drafts)] = drafts
         if not active_mask.any():
             return  # preemption may have drained every slot
-        window_t, draft_t, active = (torch.from_numpy(a).to(dev)
-                                     for a in (window, draft_len, active_mask))
-        temp, top_p, top_k = self._sampling_tensors()
         t0 = time.perf_counter()
-        if self._blocks is not None:
-            self.state, out_toks, n_acc = self._pops.spec_verify(
-                self.params, self.state, window_t, draft_t, active, temp, top_p, top_k,
-                generator=self._gen)
-        else:
-            self.state, out_toks, n_acc = model_runner.spec_verify_step(
-                self.params, self.state, window_t, draft_t, active, self.model_config, temp,
-                top_p, top_k, generator=self._gen)
+        out_toks, n_acc = self._run("spec_verify", window, draft_len, active_mask, self._temp,
+                                    self._top_p, self._top_k)
         out_toks, n_acc = out_toks.cpu().numpy(), n_acc.cpu().numpy()  # the one fetch
         # close enough to a decode step to feed the auto-K probe: once it
         # settles, an auto-mode engine graduates to fused bursts
@@ -1000,7 +988,6 @@ class TorchLLMEngine(LLMEngine):
         if self.config.num_speculative_tokens:
             self._step_decode_spec()
             return
-        cfg, dev = self.model_config, self.device
         k_steps, steps = self._burst_plan()
         if self._blocks is not None:
             self._grow_or_preempt(headroom=k_steps, steps=steps)
@@ -1009,30 +996,9 @@ class TorchLLMEngine(LLMEngine):
         if not active_mask.any():
             return  # preemption may have drained every slot
         t0 = time.perf_counter()
-        last = torch.from_numpy(self._last_tokens).to(dev)
-        active = torch.from_numpy(active_mask).to(dev)
-        temp, top_p, top_k = self._sampling_tensors()
-        if k_steps > 1:
-            # fused burst: K decode+sample steps, ONE host sync
-            steps_left = torch.from_numpy(steps).to(dev)
-            if self._blocks is not None:
-                self.state, toks_k = self._pops.decode_multi(
-                    self.params, self.state, last, active, k_steps, temp, top_p, top_k,
-                    steps_left, self._gen)
-            else:
-                self.state, toks_k = model_runner.decode_multi(
-                    self.params, self.state, last, active, cfg, k_steps, temp, top_p,
-                    top_k, steps_left, self._gen)
-            toks_burst = toks_k.cpu().numpy()  # [K, slots] — the only fetch
-        else:
-            if self._blocks is not None:
-                self.state, logits = self._pops.decode_step(self.params, self.state,
-                                                            last, active)
-            else:
-                self.state, logits = model_runner.decode_step(
-                    self.params, self.state, last, active, cfg)
-            toks_burst = model_runner.sample_tokens(
-                logits, temp, top_p, top_k, self._gen).cpu().numpy()[None, :]
+        # one decode step, or a fused burst of K decode+sample steps: ONE host sync
+        toks_burst = self._run("decode", self._last_tokens, active_mask, k_steps, self._temp,
+                               self._top_p, self._top_k, steps).cpu().numpy()  # [K, slots]
         self._note_burst_device_wall(k_steps, time.perf_counter() - t0)
         burst_reqs = {slot: req for slot, req in self._active.items() if req is not None}
         for t in range(toks_burst.shape[0]):
@@ -1070,6 +1036,9 @@ class TorchLLMEngine(LLMEngine):
                 else:
                     self._wakeup.wait(timeout=ENGINE_IDLE_WAIT_S)
                     self._wakeup.clear()
+                    if (self._followers is not None and self._tp_error is None
+                            and time.monotonic() - self._last_run > PING_S):
+                        self._run("ping")
             except Exception:  # the loop must survive: fail in-flight requests
                 LOGGER.exception("llm engine loop failed")
                 if self._admitting is not None:

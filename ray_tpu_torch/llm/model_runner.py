@@ -15,6 +15,13 @@ DecodeState's cache and lengths IN PLACE: prefill writes the prompt's K/V
 straight into its slot, and each decode step writes one position per slot.
 The returned state is the same object. Random draws come from a
 ``torch.Generator``; greedy rows match the JAX package token for token.
+
+Tensor parallelism: every function takes an optional ``mesh``. Under tp > 1
+each rank calls it with its shard of the weights (``shard_params``, by
+INFER_RULES) and a cache of its kv heads (``init_state(mesh=)``, the JAX
+package's CACHE_SPEC over "tp"), and every rank gets the whole logits (see
+models/llama.py), so sampling with equally seeded generators stays in step
+across ranks.
 """
 from __future__ import annotations
 
@@ -26,6 +33,8 @@ from ray_tpu_torch.device import resolve_device
 from ray_tpu_torch.models import llama
 from ray_tpu_torch.models.config import ModelConfig
 from ray_tpu_torch.ops.quant import as_weight
+from ray_tpu_torch.parallel.mesh import axis_size
+from ray_tpu_torch.parallel.sharding import INFER_RULES, all_reduce, shard_pytree
 
 from . import sampling
 
@@ -39,15 +48,23 @@ class DecodeState(NamedTuple):
 
 
 def init_state(cfg: ModelConfig, slots: int, max_len: int, device=None,
-               dtype: Optional[torch.dtype] = None) -> DecodeState:
+               dtype: Optional[torch.dtype] = None, mesh=None) -> DecodeState:
+    """A zeroed slot cache; under tp > 1 it holds this rank's kv heads."""
     dev = resolve_device(device)
-    shape = (cfg.n_layers, slots, max_len, cfg.n_kv_heads, cfg.head_dim)
+    shape = (cfg.n_layers, slots, max_len, cfg.n_kv_heads // axis_size(mesh, "tp"),
+             cfg.head_dim)
     dtype = dtype or cfg.activation_dtype
     return DecodeState(
         k=torch.zeros(shape, dtype=dtype, device=dev),
         v=torch.zeros(shape, dtype=dtype, device=dev),
         lengths=torch.zeros((slots,), dtype=torch.int64, device=dev),
     )
+
+
+def shard_params(params, cfg: ModelConfig, mesh):
+    """This rank's shard of a whole parameter dict (its own copies)."""
+    llama.check_tensor_parallel(cfg, mesh)
+    return shard_pytree(params, llama.param_axes(cfg), mesh, INFER_RULES)
 
 
 # ------------------------------------------------------------------------- prefill
@@ -69,6 +86,7 @@ def prefill(
     true_len: int,
     slot: int,
     cfg: ModelConfig,
+    mesh=None,
 ) -> Tuple[DecodeState, torch.Tensor]:
     """Run the prompt through the model, write its KV into `slot` (in place),
     return (state, logits at the last real token [vocab] f32).
@@ -83,9 +101,10 @@ def prefill(
     view = llama.KVCache(k=state.k[:, slot:slot + 1, :s_pad],
                          v=state.v[:, slot:slot + 1, :s_pad], length=0)
     logits, _ = llama.forward(params, tokens, cfg, cache=view,
-                              token_mask=prompt_mask(cfg, s_pad, true_len, tokens.device))
+                              token_mask=prompt_mask(cfg, s_pad, true_len, tokens.device),
+                              mesh=mesh, at=true_len - 1)
     state.lengths[slot] = true_len
-    return state, logits[0, true_len - 1].float()
+    return state, logits[0, 0]
 
 
 @torch.no_grad()
@@ -94,6 +113,7 @@ def prefill_detached(
     tokens: torch.Tensor,  # [1, S_pad] int
     true_len: int,
     cfg: ModelConfig,
+    mesh=None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Prefill WITHOUT a decode state -> (k, v, last_logits [vocab] f32), k/v
     [L, 1, S_pad, KV, HD] in the activation dtype. The paged layout installs
@@ -101,10 +121,11 @@ def prefill_detached(
     Attention is causal self-attention over S_pad, the flash kernel's case on
     CUDA."""
     s_pad = tokens.shape[1]
-    cache = llama.init_kv_cache(cfg, batch=1, max_len=s_pad, device=tokens.device)
+    cache = llama.init_kv_cache(cfg, batch=1, max_len=s_pad, device=tokens.device, mesh=mesh)
     logits, cache = llama.forward(params, tokens, cfg, cache=cache,
-                                  token_mask=prompt_mask(cfg, s_pad, true_len, tokens.device))
-    return cache.k, cache.v, logits[0, true_len - 1].float()
+                                  token_mask=prompt_mask(cfg, s_pad, true_len, tokens.device),
+                                  mesh=mesh, at=true_len - 1)
+    return cache.k, cache.v, logits[0, 0]
 
 
 @torch.no_grad()
@@ -120,7 +141,7 @@ def install_kv(state: DecodeState, k: torch.Tensor, v: torch.Tensor, true_len: i
 
 # -------------------------------------------------------------------------- decode
 
-def _layer_core(x, lp, cfg: ModelConfig, pos, cache_rw, token_mask):
+def _layer_core(x, lp, cfg: ModelConfig, pos, cache_rw, token_mask, mesh=None):
     """One layer over a window of W tokens for every slot, shared by decode
     (W = 1) and speculative verify (W = k + 1) in every cache layout.
 
@@ -130,16 +151,18 @@ def _layer_core(x, lp, cfg: ModelConfig, pos, cache_rw, token_mask):
     writes the window's K/V into its layout in place and returns per-slot
     full-history views (ck, cv) [S,max_len,KV,HD] for attention. token_mask
     [S,W] f32 (MoE only): an inactive slot's tokens claim no expert
-    capacity; the S*W tokens route as one group, as in JAX."""
+    capacity; the S*W tokens route as one group, as in JAX. The head
+    counts are the local weights' (this rank's under tp > 1), and the
+    output projection and the MLP end in an all-reduce over "tp"."""
     dt = x.dtype
     s, wlen, _ = x.shape
-    kvh, hd = cfg.n_kv_heads, cfg.head_dim
-    g = cfg.n_heads // kvh
 
     h = llama.rms_norm(x, lp["attn_norm"], cfg.norm_eps)
     q = torch.einsum("sld,dhk->slhk", h, as_weight(lp["wq"], dt))
     k = torch.einsum("sld,dhk->slhk", h, as_weight(lp["wk"], dt))
     vv = torch.einsum("sld,dhk->slhk", h, as_weight(lp["wv"], dt))
+    nh, kvh, hd = q.shape[2], k.shape[2], q.shape[3]
+    g = nh // kvh
     q = llama.rope(q, pos, cfg.rope_theta)
     k = llama.rope(k, pos, cfg.rope_theta)
 
@@ -152,10 +175,11 @@ def _layer_core(x, lp, cfg: ModelConfig, pos, cache_rw, token_mask):
     scores = scores.masked_fill(~valid[:, :, None, None, :], sampling.NEG_INF)
     w = torch.softmax(scores, dim=-1)
     o = torch.einsum("swkgt,stkd->swkgd", w, cv.float()).to(dt)
-    o = o.reshape(s, wlen, cfg.n_heads, hd)
-    x = x + torch.einsum("slhk,hkd->sld", o, as_weight(lp["wo"], dt))
+    o = o.reshape(s, wlen, nh, hd)
+    x = x + all_reduce(torch.einsum("slhk,hkd->sld", o, as_weight(lp["wo"], dt)), mesh)
 
-    down, _ = llama.mlp(llama.rms_norm(x, lp["mlp_norm"], cfg.norm_eps), lp, cfg, token_mask)
+    down, _ = llama.mlp(llama.rms_norm(x, lp["mlp_norm"], cfg.norm_eps), lp, cfg, token_mask,
+                        mesh)
     return x + down
 
 
@@ -201,7 +225,7 @@ def _slot_rw(ck, cv, writes):
     return cache_rw
 
 
-def _forward_window(params, window, cfg: ModelConfig, lengths, layer_rw, active):
+def _forward_window(params, window, cfg: ModelConfig, lengths, layer_rw, active, mesh=None):
     """The model over a window of tokens [S,W] per slot in any cache layout
     (layer_rw(i) is layer i's cache adapter) -> logits [S,W,vocab] f32.
     Lengths are not advanced. A draft copied from the prompt may hold an
@@ -210,15 +234,16 @@ def _forward_window(params, window, cfg: ModelConfig, lengths, layer_rw, active)
     An inactive slot's window claims no MoE expert capacity (JAX masks a
     decode step by `active` and a verify window by `active` repeated W
     times, not by the draft length)."""
-    x = llama._embed_lookup(params["embed"], window, cfg.activation_dtype)  # [S,W,D]
+    x = llama._embed_lookup(params["embed"], window, cfg.activation_dtype, mesh)  # [S,W,D]
     pos = _window_positions(lengths, window.shape[1])
     token_mask = None
     if cfg.n_experts > 0:
         token_mask = active.float()[:, None].expand(window.shape)
     for i in range(cfg.n_layers):
-        x = _layer_core(x, llama.layer_params(params, i), cfg, pos, layer_rw(i), token_mask)
+        x = _layer_core(x, llama.layer_params(params, i), cfg, pos, layer_rw(i), token_mask,
+                        mesh)
     x = llama.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return torch.einsum("sld,dv->slv", x, llama.lm_head(params, cfg)).float()
+    return llama.logits_of(x, params, cfg, mesh)
 
 
 @torch.no_grad()
@@ -228,6 +253,7 @@ def decode_step(
     tokens: torch.Tensor,  # [slots] int — last sampled token per slot
     active: torch.Tensor,  # [slots] bool — inactive slots compute but don't advance
     cfg: ModelConfig,
+    mesh=None,
 ) -> Tuple[DecodeState, torch.Tensor]:
     """One decode step for every slot -> (state, logits [slots, vocab] f32).
 
@@ -236,15 +262,16 @@ def decode_step(
     length does not advance. Cache and lengths are updated in place."""
     writes = _slot_writes(state.lengths, 1, state.k.shape[2])
     logits = _decode_layers(params, tokens, active, cfg, state.lengths,
-                            lambda i: _slot_rw(state.k[i], state.v[i], writes))
+                            lambda i: _slot_rw(state.k[i], state.v[i], writes), mesh)
     return state, logits
 
 
-def _decode_layers(params, tokens, active, cfg: ModelConfig, lengths, layer_rw):
+def _decode_layers(params, tokens, active, cfg: ModelConfig, lengths, layer_rw, mesh=None):
     """A decode step's model pass over any cache layout: layer_rw(i) is layer
     i's cache adapter. Advances the active slots' lengths in place; returns
     logits [slots, vocab] f32."""
-    logits = _forward_window(params, tokens[:, None], cfg, lengths, layer_rw, active)[:, 0]
+    logits = _forward_window(params, tokens[:, None], cfg, lengths, layer_rw, active,
+                             mesh)[:, 0]
     lengths.add_(active.to(lengths.dtype))
     return logits
 
@@ -262,6 +289,7 @@ def decode_multi(
     top_k: torch.Tensor,  # [slots] int
     steps_left: torch.Tensor,  # [slots] int — per-slot step budget within the burst
     generator: Optional[torch.Generator] = None,
+    mesh=None,
 ) -> Tuple[DecodeState, torch.Tensor]:
     """n_steps decode+sample steps with no host sync in between (vLLM
     multi-step scheduling) -> (state, tokens [n_steps, slots] on the device).
@@ -270,7 +298,7 @@ def decode_multi(
     its max_tokens/KV budget stops at its own limit without capping the burst
     for everyone. Only the first steps_left[s] rows of the result are
     meaningful for slot s."""
-    return _burst(lambda st, toks, act: decode_step(params, st, toks, act, cfg), state,
+    return _burst(lambda st, toks, act: decode_step(params, st, toks, act, cfg, mesh), state,
                   tokens, active, n_steps, temperature, top_p, top_k, steps_left, generator)
 
 
@@ -313,12 +341,12 @@ def spec_accept(window, greedy, draft_len, active, temperature, top_p, top_k, lo
 
 
 def spec_driver(params, window, draft_len, active, cfg: ModelConfig, lengths, layer_rw,
-                temperature, top_p, top_k, generator=None):
+                temperature, top_p, top_k, generator=None, mesh=None):
     """The speculative verify pipeline shared by both layouts (embed ->
     layers -> norm -> head -> accept); layer_rw(i) is layer i's window
     adapter. Advances lengths by n_acc + 1 for active slots in place.
     -> (tokens [S,W], n_acc [S], logits [S,W,vocab] f32)."""
-    logits = _forward_window(params, window, cfg, lengths, layer_rw, active)
+    logits = _forward_window(params, window, cfg, lengths, layer_rw, active, mesh)
     greedy = torch.argmax(logits, dim=-1)
     greedy, n_acc, advance = spec_accept(window, greedy, draft_len, active, temperature,
                                          top_p, top_k, logits[:, 0], generator)
@@ -339,6 +367,7 @@ def spec_verify_step(
     top_k: torch.Tensor,  # [S] int
     generator: Optional[torch.Generator] = None,
     return_logits: bool = False,
+    mesh=None,
 ):
     """Speculative verify (reference: vLLM ngram/prompt-lookup speculative
     decoding): ONE forward over the W-token window scores every draft; greedy
@@ -353,7 +382,7 @@ def spec_verify_step(
     toks, n_acc, logits = spec_driver(
         params, window, draft_len, active, cfg, state.lengths,
         lambda i: _slot_rw(state.k[i], state.v[i], writes), temperature, top_p, top_k,
-        generator)
+        generator, mesh)
     return (state, toks, n_acc, logits) if return_logits else (state, toks, n_acc)
 
 
@@ -443,6 +472,7 @@ def spec_multi(
     nmax: int,
     propose_fn=None,  # test seam: (hist, hlen, last, k, nmax) -> (window, draft_len)
     generator: Optional[torch.Generator] = None,
+    mesh=None,
 ):
     """m fused speculative windows per host sync: propose (on-device n-gram
     lookup) -> verify forward -> accept, m times, composing vLLM's
@@ -455,4 +485,4 @@ def spec_multi(
         hist, hlen, active, temperature, m, k, nmax, propose_fn or propose_ngram_device,
         lambda window, draft_len: spec_verify_step(
             params, state, window, draft_len, active, cfg, temperature, top_p, top_k,
-            generator)[1:]))
+            generator, mesh=mesh)[1:]))

@@ -18,8 +18,11 @@ Unlike the JAX functions (pure, with donated buffers), these update the
 PagedState's tensors IN PLACE and return the same object. The block gather
 and the attention of a paged decode step are plain PyTorch, as in the JAX
 package, which has no Pallas kernel for them. Speculative verify shares the
-slot layout's window layer body through the same adapter. The data-parallel
-and pipelined variants are later slices (ROADMAP A6).
+slot layout's window layer body through the same adapter. Under tensor
+parallelism the pool holds this rank's kv heads (the JAX package's
+POOL_SPEC over "tp") and every device function takes the ``mesh``, as the
+slot layout's do; the block manager stays on the host of rank 0. The
+data-parallel and pipelined variants are later slices (ROADMAP A2f, A6).
 """
 from __future__ import annotations
 
@@ -32,6 +35,7 @@ import torch
 from ray_tpu_torch.device import resolve_device
 from ray_tpu_torch.models import llama
 from ray_tpu_torch.models.config import ModelConfig
+from ray_tpu_torch.parallel.mesh import axis_size
 
 from .model_runner import (_burst, _decode_layers, _window_positions, prompt_mask,
                            propose_ngram_device, spec_driver, spec_multi_impl)
@@ -55,11 +59,13 @@ class PagedState(NamedTuple):
 
 def init_paged_state(cfg: ModelConfig, slots: int, max_len: int, num_blocks: int,
                      block_size: int, device=None,
-                     dtype: Optional[torch.dtype] = None) -> PagedState:
-    """A pool of num_blocks blocks plus one scratch block (its last index)."""
+                     dtype: Optional[torch.dtype] = None, mesh=None) -> PagedState:
+    """A pool of num_blocks blocks plus one scratch block (its last index);
+    under tp > 1 of this rank's kv heads."""
     dev = resolve_device(device)
     dtype = dtype or cfg.activation_dtype
-    shape = (cfg.n_layers, num_blocks + 1, block_size, cfg.n_kv_heads, cfg.head_dim)
+    shape = (cfg.n_layers, num_blocks + 1, block_size, cfg.n_kv_heads // axis_size(mesh, "tp"),
+             cfg.head_dim)
     return PagedState(
         k=torch.zeros(shape, dtype=dtype, device=dev),
         v=torch.zeros(shape, dtype=dtype, device=dev),
@@ -210,7 +216,7 @@ def make_block_manager(num_blocks: int, block_size: int, max_blocks_per_slot: in
                        slots: int, dp: int = 1,
                        enable_prefix_caching: bool = True) -> _BlockManager:
     if dp > 1:
-        raise NotImplementedError("paged KV with data_parallel_size > 1: ROADMAP A6")
+        raise NotImplementedError("paged KV with data_parallel_size > 1: ROADMAP A2f")
     return _BlockManager(num_blocks, block_size, max_blocks_per_slot, slots,
                          enable_prefix_caching)
 
@@ -272,14 +278,14 @@ def gather_blocks(state: PagedState, block_ids: Sequence[int], n_blocks: int):
 @torch.no_grad()
 def prefill_suffix_from_state(params, state: PagedState, block_ids: Sequence[int],
                               tokens: torch.Tensor, true_suffix_len: int,
-                              cfg: ModelConfig, n_blocks: int):
+                              cfg: ModelConfig, n_blocks: int, mesh=None):
     """gather_blocks + the suffix prefill, as one call in the JAX package."""
     ctx_k, ctx_v = gather_blocks(state, block_ids, n_blocks)
-    return _prefill_suffix_impl(params, ctx_k, ctx_v, tokens, true_suffix_len, cfg)
+    return _prefill_suffix_impl(params, ctx_k, ctx_v, tokens, true_suffix_len, cfg, mesh)
 
 
 def _prefill_suffix_impl(params, ctx_k, ctx_v, tokens, true_suffix_len: int,
-                         cfg: ModelConfig):
+                         cfg: ModelConfig, mesh=None):
     """Prefill ONLY the uncached suffix, attending over the cached-prefix KV
     context (reference: vLLM prefix caching skips recomputation of shared
     prompt prefixes). ctx_k/ctx_v: [L, 1, C, KV, HD]; tokens [1, S_pad].
@@ -289,13 +295,14 @@ def _prefill_suffix_impl(params, ctx_k, ctx_v, tokens, true_suffix_len: int,
     cached_len = ctx_k.shape[2]
     s_pad = tokens.shape[1]
     cache = llama.init_kv_cache(cfg, batch=1, max_len=cached_len + s_pad,
-                                device=tokens.device)
+                                device=tokens.device, mesh=mesh)
     cache.k[:, :, :cached_len] = ctx_k
     cache.v[:, :, :cached_len] = ctx_v
     logits, cache = llama.forward(params, tokens, cfg, cache=cache._replace(length=cached_len),
                                   token_mask=prompt_mask(cfg, s_pad, true_suffix_len,
-                                                         tokens.device))
-    last = logits[0, true_suffix_len - 1].float()
+                                                         tokens.device),
+                                  mesh=mesh, at=true_suffix_len - 1)
+    last = logits[0, 0]
     return cache.k[:, :, cached_len:], cache.v[:, :, cached_len:], last
 
 
@@ -366,12 +373,13 @@ def decode_step_paged(
     tokens: torch.Tensor,  # [slots] int
     active: torch.Tensor,  # [slots] bool
     cfg: ModelConfig,
+    mesh=None,
 ) -> Tuple[PagedState, torch.Tensor]:
     """One decode step for every slot against the paged pool -> (state,
     logits [slots, vocab] f32); pool and lengths updated in place."""
     write_block, write_off = _write_positions(state, active, 1)
     logits = _decode_layers(params, tokens, active, cfg, state.lengths, lambda i: _paged_rw(
-        state.k[i], state.v[i], state.block_tables, write_block, write_off))
+        state.k[i], state.v[i], state.block_tables, write_block, write_off), mesh)
     return state, logits
 
 
@@ -388,13 +396,14 @@ def decode_multi_paged(
     top_k: torch.Tensor,  # [slots] int
     steps_left: torch.Tensor,  # [slots] int — per-slot step budget within the burst
     generator: Optional[torch.Generator] = None,
+    mesh=None,
 ) -> Tuple[PagedState, torch.Tensor]:
     """n_steps fused decode+sample steps against the paged pool (one host
     sync per burst) -> (state, tokens [n_steps, slots]). Callers pre-grow
     every active slot's block table by min(n_steps, steps_left[s]) tokens:
     the tables are frozen across the burst. A slot past its own budget goes
     inactive for the remaining steps (its writes land in the scratch block)."""
-    return _burst(lambda st, toks, act: decode_step_paged(params, st, toks, act, cfg),
+    return _burst(lambda st, toks, act: decode_step_paged(params, st, toks, act, cfg, mesh),
                   state, tokens, active, n_steps, temperature, top_p, top_k, steps_left,
                   generator)
 
@@ -412,6 +421,7 @@ def spec_verify_step_paged(
     top_k: torch.Tensor,
     generator: Optional[torch.Generator] = None,
     return_logits: bool = False,
+    mesh=None,
 ):
     """Speculative verify against the paged pool (see
     model_runner.spec_verify_step for the contract). The engine grows every
@@ -422,7 +432,7 @@ def spec_verify_step_paged(
         params, window, draft_len, active, cfg, state.lengths,
         lambda i: _paged_rw(state.k[i], state.v[i], state.block_tables, write_block,
                             write_off),
-        temperature, top_p, top_k, generator)
+        temperature, top_p, top_k, generator, mesh)
     return (state, toks, n_acc, logits) if return_logits else (state, toks, n_acc)
 
 
@@ -442,6 +452,7 @@ def spec_multi_paged(
     nmax: int,
     propose_fn=None,
     generator: Optional[torch.Generator] = None,
+    mesh=None,
 ):
     """m fused speculative windows against the paged pool (see
     model_runner.spec_multi). Callers grow every active slot's table by
@@ -453,15 +464,17 @@ def spec_multi_paged(
         hist, hlen, active, temperature, m, k, nmax, propose_fn or propose_ngram_device,
         lambda window, draft_len: spec_verify_step_paged(
             params, state, window, draft_len, active, cfg, temperature, top_p, top_k,
-            generator)[1:]))
+            generator, mesh=mesh)[1:]))
 
 
 class PagedOps:
-    """Engine-facing calls of the paged device ops for one pool (the JAX
-    class also routes dp > 1 and pp > 1 through sharded variants: ROADMAP A6)."""
+    """Engine-facing calls of the paged device ops for one pool, on this
+    rank's shard under tensor parallelism (the JAX class also routes dp > 1
+    and pp > 1 through sharded variants: ROADMAP A2f, A6)."""
 
-    def __init__(self, cfg: ModelConfig):
+    def __init__(self, cfg: ModelConfig, mesh=None):
         self.cfg = cfg
+        self.mesh = mesh
 
     def install_prefill(self, state, k, v, block_ids, true_len, slot, n_blocks):
         return install_prefill(state, k, v, block_ids, true_len, slot, n_blocks)
@@ -477,32 +490,34 @@ class PagedOps:
     def prefill_suffix_from_state(self, params, state, block_ids, tokens,
                                   true_suffix_len, n_blocks):
         return prefill_suffix_from_state(params, state, block_ids, tokens,
-                                         true_suffix_len, self.cfg, n_blocks)
+                                         true_suffix_len, self.cfg, n_blocks, self.mesh)
 
     def decode_step(self, params, state, tokens, active):
-        return decode_step_paged(params, state, tokens, active, self.cfg)
+        return decode_step_paged(params, state, tokens, active, self.cfg, self.mesh)
 
     def decode_multi(self, params, state, tokens, active, n_steps, temperature, top_p,
                      top_k, steps_left, generator=None):
         return decode_multi_paged(params, state, tokens, active, self.cfg, n_steps,
-                                  temperature, top_p, top_k, steps_left, generator)
+                                  temperature, top_p, top_k, steps_left, generator,
+                                  mesh=self.mesh)
 
     def spec_verify(self, params, state, window, draft_len, active, temperature, top_p,
                     top_k, generator=None):
         return spec_verify_step_paged(params, state, window, draft_len, active, self.cfg,
-                                      temperature, top_p, top_k, generator)
+                                      temperature, top_p, top_k, generator, mesh=self.mesh)
 
     def spec_multi(self, params, state, hist, hlen, active, temperature, top_p, top_k, m,
                    k, nmax, generator=None):
         return spec_multi_paged(params, state, hist, hlen, active, self.cfg, temperature,
-                                top_p, top_k, m, k, nmax, generator=generator)
+                                top_p, top_k, m, k, nmax, generator=generator,
+                                mesh=self.mesh)
 
 
 # ------------------------------------------------------------------ chunked prefill
 
 @torch.no_grad()
 def chunked_prefill(params, prompt_ids: List[int], cfg: ModelConfig, chunk: int,
-                    device=None) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+                    device=None, mesh=None) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Prefill a long prompt chunk at a time (reference: vLLM chunked prefill).
 
     Peak activation memory is one chunk's, not the whole prompt's; the KV
@@ -514,14 +529,15 @@ def chunked_prefill(params, prompt_ids: List[int], cfg: ModelConfig, chunk: int,
     dev = resolve_device(device)
     n = len(prompt_ids)
     s_pad = -(-n // chunk) * chunk
-    cache = llama.init_kv_cache(cfg, batch=1, max_len=s_pad, device=dev)
+    cache = llama.init_kv_cache(cfg, batch=1, max_len=s_pad, device=dev, mesh=mesh)
     last = None
     for start in range(0, s_pad, chunk):
         piece = prompt_ids[start:start + chunk]
         tokens = torch.zeros((1, chunk), dtype=torch.int64)
         tokens[0, :len(piece)] = torch.as_tensor(piece, dtype=torch.int64)
         logits, cache = llama.forward(params, tokens.to(dev), cfg, cache=cache,
-                                      token_mask=prompt_mask(cfg, chunk, len(piece), dev))
+                                      token_mask=prompt_mask(cfg, chunk, len(piece), dev),
+                                      mesh=mesh, at=len(piece) - 1)
         if start < n <= start + chunk:
-            last = logits[0, (n - 1) - start].float()
+            last = logits[0, 0]
     return cache.k, cache.v, last

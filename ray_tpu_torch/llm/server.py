@@ -88,15 +88,16 @@ def _models_list(model_ids) -> Dict[str, Any]:
 
 
 class LLMServer:
-    """Hosts one model's engine. ``device`` (default CUDA) passes through to
-    TorchLLMEngine when no engine is given. A decode-pool server gets
+    """Hosts one model's engine. ``device`` (default CUDA) and, under tensor
+    parallelism, ``devices`` (one per rank) pass through to TorchLLMEngine
+    when no engine is given. A decode-pool server gets
     ``prefill_handle``, a handle to the prefill pool, so that decode_stream
     can prefill again over the host path after a device-plane failure."""
 
     def __init__(self, llm_config: LLMConfig, engine: Optional[TorchLLMEngine] = None,
-                 prefill_handle=None, device=None):
+                 prefill_handle=None, device=None, devices=None):
         self.llm_config = llm_config
-        self.engine = engine or TorchLLMEngine(llm_config, device=device)
+        self.engine = engine or TorchLLMEngine(llm_config, device=device, devices=devices)
         self.prefill_handle = prefill_handle
         self.engine.start()
 
@@ -292,6 +293,9 @@ class LLMServer:
         eng = self.engine
         if eng._shutdown:
             raise RuntimeError("engine stopped")
+        why = eng.health_error()
+        if why:
+            raise RuntimeError(why)
         # a live loop ticks every burst: requests in flight with a stale tick
         # mean the scheduler thread is wedged, so the replica is replaced
         if eng._loop_thread is not None and (eng.num_active or eng.num_pending):
@@ -504,9 +508,10 @@ def build_pd_openai_app(llm_config: LLMConfig, *, serve, device=None, num_prefil
 
 
 def build_openai_app(llm_configs: List[LLMConfig], name_prefix: str = "llm", *, serve,
-                     device=None):
+                     device=None, devices=None):
     """An OpenAIRouter ingress over one LLMServer deployment per model, on
-    the hosting `serve` module, with `device` bound into every LLMServer.
+    the hosting `serve` module, with `device` (and `devices`, one per
+    tensor-parallel rank) bound into every LLMServer.
     Each config's ``deployment_config`` gives its num_replicas,
     max_ongoing_requests and ray_actor_options."""
     servers = {}
@@ -517,6 +522,6 @@ def build_openai_app(llm_configs: List[LLMConfig], name_prefix: str = "llm", *, 
             max_ongoing_requests=cfg.deployment_config.get("max_ongoing_requests", 64),
             ray_actor_options=cfg.deployment_config.get("ray_actor_options"),
         )
-        servers[cfg.model_id] = d.bind(cfg, device=device)
+        servers[cfg.model_id] = d.bind(cfg, device=device, devices=devices)
     router = serve.deployment(OpenAIRouter).options(name=f"{name_prefix}-router")
     return router.bind(**servers)

@@ -25,8 +25,13 @@ ever existing whole.
 model.safetensors, every tensor in f32 except f16, which stays f16, and
 config.json. Each tensor streams from its device in turn.
 
-The device-mesh arguments of the JAX loader (``mesh``, ``rules``) are ROADMAP
-A6; the port loads onto one device.
+With a ``mesh`` (tensor parallelism), each rank keeps only its shard of
+each leaf (``rules``, INFER_RULES by default): a piece's slice is cut from
+the file's mapping before it moves, so a rank reads and holds its shard
+and one slice. The one exception is an int8 leaf whose contraction axis is
+sharded (wo, w_down): its scales need the whole piece's max, so that piece
+moves whole, is quantized, and then cut; such a rank's start peak is its
+shards plus one whole piece and its f32 temporaries.
 """
 from __future__ import annotations
 
@@ -39,6 +44,7 @@ import torch
 from ray_tpu_torch.device import resolve_device
 from ray_tpu_torch.ops.quant import (LLAMA_QUANT_KEYS, QTensor, empty_qtensor,
                                      layer_contract_axis, quantize)
+from ray_tpu_torch.parallel.sharding import INFER_RULES, local_shape, shard_view
 
 from . import llama
 from .config import ModelConfig
@@ -221,36 +227,43 @@ def _leaf_pieces(cfg: ModelConfig) -> Dict[str, List[Piece]]:
 @torch.no_grad()
 def load_llama_params(source_dir: str, cfg: Optional[ModelConfig] = None, device=None,
                       dtype: torch.dtype = torch.bfloat16, *,
-                      quantize_int8: bool = False) -> Params:
+                      quantize_int8: bool = False, mesh=None, rules=INFER_RULES) -> Params:
     """Stream an HF Llama / Mixtral safetensors checkpoint into the port's
     parameter dict on `device` (CUDA unless "cpu" is asked for), in `dtype`.
 
     cfg defaults to the directory's config.json. quantize_int8=True stores the
     layer matmuls and an untied head as int8 QTensors, each piece cast to
-    `dtype` and quantized as it arrives."""
+    `dtype` and quantized as it arrives. With a `mesh`, this rank's shards
+    by `rules` (bit for bit shard_pytree of the whole load)."""
     dev = resolve_device(device)
     if cfg is None:
         cfg = config_from_hf(source_dir)
+    llama.check_tensor_parallel(cfg, mesh)
     rd = _ShardedReader(source_dir)
-    shapes = llama.param_shapes(cfg)
+    shapes, axes = llama.param_shapes(cfg), llama.param_axes(cfg)
     layer_keys = shapes["layers"]
 
-    def fill(name: str, shape, pieces: List[Piece], axis: Optional[int]):
-        dst = (torch.empty(shape, dtype=dtype, device=dev) if axis is None
-               else empty_qtensor(shape, axis, dev))
+    def fill(name: str, shape, leaf_axes, pieces: List[Piece], axis: Optional[int]):
+        local = local_shape(shape, leaf_axes, mesh, rules)
+        dst = (torch.empty(local, dtype=dtype, device=dev) if axis is None
+               else empty_qtensor(local, axis, dev))
         for index, key, to_leaf in pieces:
-            w = to_leaf(rd.get(key).to(dev))
+            piece_axes = leaf_axes[len(index):]
+            w = to_leaf(rd.get(key))  # a view of the file's mapping
             want = tuple(shape[len(index):])
             if tuple(w.shape) != want:
                 raise ValueError(f"{key}: shape {tuple(w.shape)} does not fit {name} "
                                  f"{tuple(shape)} of the config ({want} expected)")
             if axis is None:
-                dst[index].copy_(w)
-            else:
-                # the piece as read is dropped once cast; its contraction axis
-                # is its first: d_in of a layer slice, of one expert, or of the head
-                w = w.to(dtype)
-                dst.q[index], dst.s[index] = quantize(w, 0)
+                dst[index].copy_(_to_device(shard_view(w, piece_axes, mesh, rules), dev))
+                continue
+            # the piece as read is dropped once cast; its contraction axis is
+            # its first: d_in of a layer slice, of one expert, or of the head
+            cut = local[len(index)] != shape[len(index)]
+            if not cut:  # cut the piece first: its scales are the whole one's
+                w = shard_view(w, piece_axes, mesh, rules)
+            qt = quantize(_to_device(w, dev).to(dtype), 0)
+            dst.q[index], dst.s[index] = shard_view(qt, piece_axes, mesh, rules) if cut else qt
         return dst
 
     pieces = _leaf_pieces(cfg)
@@ -259,13 +272,22 @@ def load_llama_params(source_dir: str, cfg: Optional[ModelConfig] = None, device
         if name == "layers":
             continue
         axis = 0 if quantize_int8 and name == "lm_head" else None
-        params[name] = fill(name, shape, pieces[name], axis)
+        params[name] = fill(name, shape, axes[name], pieces[name], axis)
     for field, shape in layer_keys.items():
         axis = (layer_contract_axis(field, layer_keys)
                 if quantize_int8 and field in LLAMA_QUANT_KEYS else None)
-        params["layers"][field] = fill(f"layers/{field}", shape,
+        params["layers"][field] = fill(f"layers/{field}", shape, axes["layers"][field],
                                        pieces[f"layers/{field}"], axis)
     return params
+
+
+def _to_device(w: torch.Tensor, dev) -> torch.Tensor:
+    """A view of the file's mapping, on `dev`: moved in the file's own order
+    (its dims by descending stride, so the host copies whole runs of the
+    file, not a transpose) and viewed back in w's order on the device."""
+    order = sorted(range(w.dim()), key=lambda i: (-w.stride(i), i))
+    inverse = [order.index(i) for i in range(w.dim())]
+    return w.permute(order).to(dev).permute(inverse)
 
 
 def hf_state_dict(params: Params, cfg: ModelConfig) -> Dict[str, torch.Tensor]:

@@ -18,11 +18,22 @@ recomputes each layer in the backward pass (``torch.utils.checkpoint``);
 ``dots`` and ``dots_no_batch`` save the layer's matrix products and
 recompute the rest (selective checkpointing).
 
+Tensor parallelism (serving): with a ``mesh`` whose "tp" axis holds n > 1
+ranks, each rank holds its shard of the weights (``param_axes`` and
+``parallel.shard_pytree``: heads, kv heads, the MLP's hidden units and the
+vocabulary cut in n) and runs the same forward on it. Head counts come from
+the local weights' shapes; the attention output projection and the MLP's
+down projection end in an all-reduce over "tp"; the embedding is a
+vocab-parallel lookup (each rank's rows, the others masked, then an
+all-reduce), and the logits are all-gathered over the vocabulary, so every
+rank holds the same logits. Where JAX's sharded lookup is a one-hot product
+(out-of-range ids embed to zeros), the port keeps the gather's wrap-then-
+clamp on the global vocabulary. A mixture-of-experts MLP under tp > 1 (the
+experts' "mlp" axis and "ep") is ROADMAP A6.
+
 Branches of the JAX module that the port does not run yet raise
 NotImplementedError naming their ROADMAP item: ring/ulysses attention and
-pipeline stages (A6). The one-hot embedding branch exists only for
-tensor-parallel vocab sharding (A6), which the port does not have yet, so
-the gather is the whole lookup.
+pipeline stages (A6).
 """
 from __future__ import annotations
 
@@ -37,7 +48,11 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from ray_tpu_torch.device import resolve_device
 from ray_tpu_torch.ops.attention import attention
 from ray_tpu_torch.ops.quant import (LLAMA_QUANT_KEYS, QTensor, as_weight, empty_qtensor,
-                                     layer_contract_axis, quantize, quantize_layer_)
+                                     layer_contract_axis, quantize, quantize_layer,
+                                     quantize_layer_)
+from ray_tpu_torch.parallel.mesh import axis_index, axis_size
+from ray_tpu_torch.parallel.sharding import (INFER_RULES, all_gather, all_reduce,
+                                             local_shape, shard_leaf, shard_view)
 
 from . import moe
 from .config import ModelConfig
@@ -73,6 +88,41 @@ def param_shapes(cfg: ModelConfig) -> Dict[str, Any]:
     return shapes
 
 
+def param_axes(cfg: ModelConfig) -> Dict[str, Any]:
+    """Logical-axis tree mirroring init()'s output, a leading "layer" axis on
+    the stacked layer leaves (ray_tpu/models/llama.py:30-62, scanned)."""
+    layers = {
+        "attn_norm": ("embed",),
+        "wq": ("embed", "heads", "head_dim"),
+        "wk": ("embed", "kv_heads", "head_dim"),
+        "wv": ("embed", "kv_heads", "head_dim"),
+        "wo": ("heads", "head_dim", "embed"),
+        "mlp_norm": ("embed",),
+    }
+    if cfg.n_experts > 0:
+        layers.update(moe.EXPERT_AXES)
+    else:
+        layers.update({"w_gate": ("embed", "mlp"), "w_up": ("embed", "mlp"),
+                       "w_down": ("mlp", "embed")})
+    axes: Dict[str, Any] = {
+        "embed": ("vocab", "embed"),
+        "layers": {name: ("layer",) + ax for name, ax in layers.items()},
+        "final_norm": ("embed",),
+    }
+    if not cfg.tie_embeddings:
+        axes["lm_head"] = ("embed", "vocab")
+    return axes
+
+
+def check_tensor_parallel(cfg: ModelConfig, mesh) -> None:
+    """Refuse what tensor parallelism does not serve: a MoE model under
+    tp > 1 (ROADMAP A6)."""
+    if cfg.n_experts > 0 and axis_size(mesh, "tp") > 1:
+        raise NotImplementedError(
+            "a mixture-of-experts model under tensor parallelism (the experts' mlp "
+            "axis and ep): ROADMAP A6")
+
+
 def _init_scales(cfg: ModelConfig) -> Dict[str, float]:
     """Per-leaf init scales of ray_tpu/models/llama.py:65-110 and
     ray_tpu/models/moe.py:130-141 (0 = ones)."""
@@ -90,7 +140,8 @@ def _init_scales(cfg: ModelConfig) -> Dict[str, float]:
 
 @torch.no_grad()
 def init(cfg: ModelConfig, *, seed: int = 0, device=None,
-         dtype: torch.dtype = torch.float32, quantize_int8: bool = False) -> Params:
+         dtype: torch.dtype = torch.float32, quantize_int8: bool = False,
+         mesh=None) -> Params:
     """Scaled-normal init with the JAX package's shapes and scale rules
     (ray_tpu/models/llama.py:65-110, moe.py:130-141): inputs d^-0.5, wo
     (2*L*d)^-0.5, w_down (2*L*ff)^-0.5, embed 1.0, lm_head d^-0.5, norms 1.
@@ -103,9 +154,15 @@ def init(cfg: ModelConfig, *, seed: int = 0, device=None,
 
     quantize_int8=True quantizes each layer's matmul slice and the untied
     head as they are drawn: bit for bit quantize_llama_params(init(cfg,
-    seed=seed, dtype=dtype)), without ever holding the float model."""
+    seed=seed, dtype=dtype)), without ever holding the float model.
+
+    With a `mesh`, each rank draws every piece whole (the same numbers on
+    every rank), quantizes it whole, and keeps its shard by INFER_RULES: bit
+    for bit shard_pytree of the unsharded init, holding the shards plus one
+    piece."""
     dev = resolve_device(device)
-    shapes, scales = param_shapes(cfg), _init_scales(cfg)
+    check_tensor_parallel(cfg, mesh)
+    shapes, scales, axes = param_shapes(cfg), _init_scales(cfg), param_axes(cfg)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
 
@@ -116,9 +173,16 @@ def init(cfg: ModelConfig, *, seed: int = 0, device=None,
     def ones(shape):
         return torch.ones(shape, device=dev, dtype=dtype)
 
-    ls = shapes["layers"]
+    def shard(x, leaf_axes):  # a copy: the whole draw is freed
+        return shard_leaf(x, leaf_axes, mesh, INFER_RULES)
+
+    def piece(x, leaf_axes):  # a view: the store into the leaf copies it
+        return shard_view(x, leaf_axes[1:], mesh, INFER_RULES)
+
+    ls, la = shapes["layers"], axes["layers"]
     layers: Params = {}
     for name, shape in ls.items():
+        shape = local_shape(shape, la[name], mesh, INFER_RULES)
         if quantize_int8 and name in LLAMA_QUANT_KEYS:
             layers[name] = empty_qtensor(shape, layer_contract_axis(name, ls), dev)
         elif scales[name] == 0.0:
@@ -130,18 +194,22 @@ def init(cfg: ModelConfig, *, seed: int = 0, device=None,
             if scales[name] == 0.0:
                 continue
             w = draw(shape[1:], scales[name])
-            if isinstance(layers[name], QTensor):
-                quantize_layer_(layers[name], i, w, layer_contract_axis(name, ls))
-            else:
-                layers[name][i] = w
+            dst, axis = layers[name], layer_contract_axis(name, ls)
+            if not isinstance(dst, QTensor):
+                dst[i] = piece(w, la[name])
+            elif tuple(dst.q.shape[1:]) == tuple(w.shape):
+                quantize_layer_(dst, i, w, axis)  # unsharded: in place
+            else:  # scales from the whole piece, then the shard
+                dst.q[i], dst.s[i] = piece(quantize_layer(w, axis), la[name])
     params: Params = {
-        "embed": draw(shapes["embed"], 1.0),
+        "embed": shard(draw(shapes["embed"], 1.0), axes["embed"]),
         "layers": layers,
         "final_norm": ones(shapes["final_norm"]),
     }
     if not cfg.tie_embeddings:
         head = draw(shapes["lm_head"], scales["lm_head"])
-        params["lm_head"] = quantize(head, 0) if quantize_int8 else head
+        params["lm_head"] = shard(quantize(head, 0) if quantize_int8 else head,
+                                  axes["lm_head"])
     return params
 
 
@@ -214,15 +282,27 @@ def _maybe_remat(body, cfg: ModelConfig):
 
 
 def _embed_lookup(table: torch.Tensor, tokens: torch.Tensor,
-                  dtype: torch.dtype) -> torch.Tensor:
+                  dtype: torch.dtype, mesh=None) -> torch.Tensor:
     """Token embedding gather, cast to the activation dtype (the rows only).
 
     Out-of-vocabulary ids follow JAX's gather (ray_tpu/models/llama.py:147-157):
     a negative id wraps once (i + V), then the id is clamped to [0, V - 1], so
-    a bad prompt id reads a row instead of raising (or, on CUDA, asserting)."""
-    v = table.shape[0]
+    a bad prompt id reads a row instead of raising (or, on CUDA, asserting).
+
+    Under tp > 1 the table is this rank's rows of the vocabulary: ids are
+    wrapped and clamped against the GLOBAL V first, each rank reads the rows
+    it holds, zeros the rest, and an all-reduce joins them (exact: one row
+    plus zeros)."""
+    n = axis_size(mesh, "tp")
+    v_local = table.shape[0]
+    v = v_local * n
     tokens = torch.where(tokens < 0, tokens + v, tokens).clamp(0, v - 1)
-    return table[tokens].to(dtype)
+    if n == 1:
+        return table[tokens].to(dtype)
+    local = tokens - axis_index(mesh, "tp") * v_local
+    mine = (local >= 0) & (local < v_local)
+    rows = table[local.clamp(0, v_local - 1)].to(dtype)
+    return all_reduce(torch.where(mine[..., None], rows, torch.zeros_like(rows)), mesh)
 
 
 def tree_leaves(tree: Params) -> List[Any]:
@@ -252,9 +332,17 @@ def layer_params(params: Params, i: int) -> Params:
 
 
 def lm_head(params: Params, cfg: ModelConfig) -> torch.Tensor:
-    """[d, V] output projection (the embedding's transpose when tied)."""
+    """[d, V] output projection (the embedding's transpose when tied); under
+    tp > 1 this rank's [d, V / tp] columns."""
     head = params["embed"].t() if cfg.tie_embeddings else params["lm_head"]
     return as_weight(head, cfg.activation_dtype)
+
+
+def logits_of(x: torch.Tensor, params: Params, cfg: ModelConfig, mesh=None) -> torch.Tensor:
+    """Normed hidden states [B, S, d] -> f32 logits [B, S, V]: the head's
+    product, all-gathered over the vocabulary under tp > 1."""
+    local = torch.einsum("bsd,dv->bsv", x, lm_head(params, cfg))
+    return all_gather(local, mesh, "tp", dim=-1).float()
 
 
 # ------------------------------------------------------------------------- forward
@@ -270,10 +358,12 @@ class KVCache(NamedTuple):
 
 
 def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
-                  device=None) -> KVCache:
+                  device=None, mesh=None) -> KVCache:
+    """A zeroed cache; under tp > 1 it holds this rank's kv heads."""
     dev = resolve_device(device)
     dtype = dtype or cfg.activation_dtype
-    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads // axis_size(mesh, "tp"),
+             cfg.head_dim)
     return KVCache(k=torch.zeros(shape, dtype=dtype, device=dev),
                    v=torch.zeros(shape, dtype=dtype, device=dev), length=0)
 
@@ -287,12 +377,15 @@ def _block(
     cache_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
     cache_len: int = 0,
     token_mask: Optional[torch.Tensor] = None,
+    mesh=None,
 ):
     """One decoder block -> (x, (k, v) cache views if caching else None, the
     MoE aux loss or None for a dense config).
 
     With a cache, this step's K/V are written into ck/cv [B, max_len, Hkv, hd]
-    at cache_len in place, and the queries attend over the filled prefix."""
+    at cache_len in place, and the queries attend over the filled prefix.
+    Under tp > 1 the heads are this rank's (the local weights' shapes), and
+    the output projection's partial sums are all-reduced."""
     dt = x.dtype
     h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
     q = torch.einsum("bsd,dhk->bshk", h, as_weight(lp["wq"], dt))
@@ -316,20 +409,23 @@ def _block(
     else:
         attn = attention(q, k, v, causal=True, segment_ids=segment_ids,
                          impl=cfg.attention_impl)
-    o = torch.einsum("bshk,hkd->bsd", attn, as_weight(lp["wo"], dt))
+    o = all_reduce(torch.einsum("bshk,hkd->bsd", attn, as_weight(lp["wo"], dt)), mesh)
     x = x + o
 
-    down, aux = mlp(rms_norm(x, lp["mlp_norm"], cfg.norm_eps), lp, cfg, token_mask)
+    down, aux = mlp(rms_norm(x, lp["mlp_norm"], cfg.norm_eps), lp, cfg, token_mask, mesh)
     return x + down, new_kv, aux
 
 
 def mlp(h: torch.Tensor, lp: Params, cfg: ModelConfig,
-        token_mask: Optional[torch.Tensor] = None):
+        token_mask: Optional[torch.Tensor] = None, mesh=None):
     """The block's MLP over h [B, S, D] -> (out [B, S, D], the MoE aux loss
     or None): SwiGLU, or the capacity-dispatch MoE over the B*S tokens
     (ray_tpu/models/llama.py:259-272). token_mask [B, S], 1 = a real token
-    (MoE only): pads and inactive slots claim no expert capacity."""
+    (MoE only): pads and inactive slots claim no expert capacity. Under
+    tp > 1 the hidden units are this rank's and the down projection's
+    partial sums are all-reduced."""
     dt = h.dtype
+    check_tensor_parallel(cfg, mesh)
     if cfg.n_experts > 0:
         b, s, d = h.shape
         y, aux = moe.moe_mlp(h.reshape(b * s, d), lp["router"], lp["w_gate"], lp["w_up"],
@@ -338,7 +434,8 @@ def mlp(h: torch.Tensor, lp: Params, cfg: ModelConfig,
         return y.reshape(b, s, d), aux
     gate = torch.einsum("bsd,df->bsf", h, as_weight(lp["w_gate"], dt))
     up = torch.einsum("bsd,df->bsf", h, as_weight(lp["w_up"], dt))
-    return torch.einsum("bsf,fd->bsd", F.silu(gate) * up, as_weight(lp["w_down"], dt)), None
+    down = torch.einsum("bsf,fd->bsd", F.silu(gate) * up, as_weight(lp["w_down"], dt))
+    return all_reduce(down, mesh), None
 
 
 def forward(
@@ -351,23 +448,31 @@ def forward(
     cache: Optional[KVCache] = None,
     return_aux: bool = False,
     token_mask: Optional[torch.Tensor] = None,  # [B, S] 1 = real; MoE capacity masking
+    mesh=None,
+    at: Optional[int] = None,
 ):
     """tokens [B, S] -> (logits [B, S, vocab] f32, updated cache or None).
+    With `at`, only position `at` goes through the final norm and the head
+    (logits [B, 1, vocab]): a prefill keeps one row, so it neither computes
+    nor, under tp > 1, all-gathers the others.
 
     The cache, when given, is updated in place (see KVCache). With
     return_aux=True also returns the MoE load-balancing loss summed over the
     layers (a zero for dense configs). Without a cache each layer goes
-    through _maybe_remat."""
+    through _maybe_remat. With a `mesh`, params and cache are this rank's
+    shards (tensor parallelism, inference only) and every rank returns the
+    whole logits."""
     if cfg.pipeline_stages > 1 and cache is None:
         raise NotImplementedError("pipeline_stages > 1: ROADMAP A6")
     b, s = tokens.shape
     if positions is None:
         start = cache.length if cache is not None else 0
         positions = (torch.arange(s, device=tokens.device) + start)[None, :].expand(b, s)
-    x = _embed_lookup(params["embed"], tokens, cfg.activation_dtype)
+    x = _embed_lookup(params["embed"], tokens, cfg.activation_dtype, mesh)
     if cache is None:
         def body(h, lp):
-            h, _, aux = _block(h, lp, cfg, positions, segment_ids, token_mask=token_mask)
+            h, _, aux = _block(h, lp, cfg, positions, segment_ids, token_mask=token_mask,
+                               mesh=mesh)
             return h, aux
 
         layer = _maybe_remat(body, cfg)
@@ -376,7 +481,7 @@ def forward(
         lp = layer_params(params, i)
         if cache is not None:
             x, _, aux = _block(x, lp, cfg, positions, segment_ids,
-                               (cache.k[i], cache.v[i]), cache.length, token_mask)
+                               (cache.k[i], cache.v[i]), cache.length, token_mask, mesh)
         else:
             x, aux = layer(x, lp)
         if return_aux and aux is not None:
@@ -384,8 +489,10 @@ def forward(
     new_cache = None
     if cache is not None:
         new_cache = KVCache(cache.k, cache.v, cache.length + s)
+    if at is not None:
+        x = x[:, at:at + 1]
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    logits = torch.einsum("bsd,dv->bsv", x, lm_head(params, cfg)).float()
+    logits = logits_of(x, params, cfg, mesh)
     if return_aux:
         return logits, new_cache, aux_total
     return logits, new_cache

@@ -126,6 +126,15 @@ def moe_mlp(
             torch.stack([aux for _, aux in outs]).mean())
 
 
+# logical axes of one layer's MoE leaves (ray_tpu/models/moe.py:144-149)
+EXPERT_AXES = {
+    "router": ("embed", "expert"),
+    "w_gate": ("expert", "embed", "mlp"),
+    "w_up": ("expert", "embed", "mlp"),
+    "w_down": ("expert", "mlp", "embed"),
+}
+
+
 def expert_shapes(cfg: ModelConfig) -> dict:
     """One layer's MoE leaves, in place of the dense w_gate/w_up/w_down
     (init_expert_weights' shapes; llama.init draws them)."""

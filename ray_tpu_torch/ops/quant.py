@@ -165,6 +165,13 @@ def empty_qtensor(shape, axis: int, device) -> QTensor:
                    torch.empty(scale_shape(shape, axis), dtype=torch.float32, device=device))
 
 
+def quantize_layer(w: torch.Tensor, axis: int) -> QTensor:
+    """One layer's piece of a stacked weight (w: that layer), quantized over
+    the stacked leaf's contraction axis: d_in (axis 1), or d_in of each
+    expert (axis 2), the same bits as quantize_layer_ stores."""
+    return quantize(w, axis - 1)
+
+
 def quantize_layer_(dst: QTensor, i: int, w: torch.Tensor, axis: int) -> None:
     """Quantize layer i of a stacked weight (w: that layer) into dst in
     place, over the stacked leaf's contraction axis. An expert stack goes

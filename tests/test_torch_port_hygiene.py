@@ -23,6 +23,9 @@ assert "torch" not in sys.modules, "importing the package must stay light"
 names = [m.name for m in pkgutil.walk_packages(ray_tpu_torch.__path__, "ray_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
+# the mesh, the sharding rules and the tensor-parallel follower's entry point
+assert {"ray_tpu_torch.parallel.mesh", "ray_tpu_torch.parallel.sharding",
+        "ray_tpu_torch.llm.tp_worker"} <= set(names), names
 from ray_tpu_torch.ops import _build
 assert not _build._loaded, "importing must build no kernel"
 leaked = sorted(m for m, mod in sys.modules.items() if mod is not None
@@ -46,11 +49,20 @@ def test_every_module_imports_with_jax_and_ray_tpu_blocked():
     assert int(proc.stdout.strip()) >= 15  # the walk saw the whole package
 
 
-def test_no_jax_or_ray_tpu_import_in_the_sources():
-    pattern = re.compile(r"^\s*(import|from)\s+(jax|ray_tpu)(\.|\s|$)")
+def _sources():
+    """chip_smoke.py and every source of the package, parallel/ and the
+    tensor-parallel follower (llm/tp_worker.py) among them."""
     files = [os.path.join(REPO, "chip_smoke.py")]
     for root, _, names in os.walk(PKG):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
+    for must in ("parallel/mesh.py", "parallel/sharding.py", "llm/tp_worker.py"):
+        assert os.path.join(PKG, must) in files, must
+    return files
+
+
+def test_no_jax_or_ray_tpu_import_in_the_sources():
+    pattern = re.compile(r"^\s*(import|from)\s+(jax|ray_tpu)(\.|\s|$)")
+    files = _sources()
     hits = []
     for path in files:
         with open(path, encoding="utf-8") as f:
@@ -89,9 +101,7 @@ def _imported_modules(tree):
 def test_no_import_of_jax_or_ray_tpu_at_any_depth():
     """The syntax tree of every source, functions included: a lazy import
     inside a builder or a method is an import all the same."""
-    files = [os.path.join(REPO, "chip_smoke.py")]
-    for root, _, names in os.walk(PKG):
-        files += [os.path.join(root, n) for n in names if n.endswith(".py")]
+    files = _sources()
     hits, in_functions = [], 0
     for path in files:
         with open(path, encoding="utf-8") as f:
@@ -140,7 +150,7 @@ def _entry_point(name):
     from ray_tpu_torch.llm import model_runner, paged
     from ray_tpu_torch.models import config, llama
 
-    from ray_tpu_torch import rllib, train
+    from ray_tpu_torch import parallel, rllib, train
     from ray_tpu_torch.rllib.core.rl_module import DQNModule
 
     tiny = config.get_config("byte-tiny")
@@ -175,7 +185,9 @@ def _entry_point(name):
             "init_state": lambda: model_runner.init_state(tiny, 1, 16),
             "init_paged_state": lambda: paged.init_paged_state(tiny, 1, 16, 2, 16),
             "train.init_state": lambda: train.init_state(tiny, tx),
-            "make_train_step": lambda: train.make_train_step(tiny, tx)}[name]
+            "make_train_step": lambda: train.make_train_step(tiny, tx),
+            "build_mesh": lambda: parallel.build_mesh(parallel.MeshSpec(tp=2)),
+            "TorchLLMEngine-tp2": lambda: TorchLLMEngine(LLMConfig(tensor_parallel_size=2))}[name]
 
 
 @pytest.mark.parametrize("name", ["resolve_device", "TorchLLMEngine", "TorchLLMEngine-int8",
@@ -183,7 +195,8 @@ def _entry_point(name):
                                   "LLMEngineStage",
                                   "llama.init", "init_state", "init_paged_state",
                                   "train.init_state",
-                                  "make_train_step", "DQN", "SAC", "CQL", "BC", "DQNLearner",
+                                  "make_train_step", "build_mesh", "TorchLLMEngine-tp2",
+                                  "DQN", "SAC", "CQL", "BC", "DQNLearner",
                                   "MultiAgentPPO", "DreamerV3", "IMPALA", "APPO",
                                   "IMPALALearner"])
 def test_entry_points_default_to_cuda_and_refuse_a_silent_cpu(monkeypatch, name):
