@@ -18,7 +18,8 @@ Phases, each fatal on failure (the script exits non-zero and prints no result):
      the prefill and training shapes and at one tp 2 rank's heads (H16/4 at
      S = 16, 129, 1024), B1b and B1c (backward) at the training
      shape (B6 S2048 H32/8 D128 causal), a segment-id shape, the same tile
-     edges and a tiny one; each kernel's time (CUDA events, and
+     edges, a tiny one and one training-mesh rank's heads (B2 S1024 H16/4,
+     phase F's shape); each kernel's time (CUDA events, and
      device time per launch from torch.profiler) beside its plain version's,
      its bound and one library call's (a yardstick only: the port never calls
      it): B1a at every prefill bucket and at the training shape, B1b and B1c at
@@ -83,7 +84,8 @@ Phases, each fatal on failure (the script exits non-zero and prints no result):
      single-window; device, fused m = 4) on three repetitive prompts P + C
      + P, C the plain engine's own greedy continuation of P (each run must
      draft; acceptance and tok/s beside the plain engine); bench_spec_modes
-     at batch 1 and 8 of 96 tokens in f32, as there (one f32 copy of the
+     at batch 1 and 8 (the paged layout at 8 only) of 96 tokens in f32, as
+     there (one f32 copy of the
      weights): the plain engine, fused-only m = 8, and the oracle (the
      plain engine's greedy continuation as drafts, through _propose_ngram
      and spec_multi's propose_fn seam) single-window and fused m = 4;
@@ -115,6 +117,24 @@ Phases, each fatal on failure (the script exits non-zero and prints no result):
   8. the training numerics at full width: llama8b-geom2 in f32 at B1 S256,
      loss_fn's value and every parameter's gradient through the kernels,
      with remat full and dots, against attention_impl="reference";
+  F. after 8, training on a device mesh (A6): llama8b-geom2 at full width
+     (bf16 activations, f32 parameters, remat dots) on MeshSpec(fsdp=2,
+     tp=2), four spawned ranks sharing cuda:0 over gloo (each wait bounded,
+     every rank killed on a failure), each holding its TRAIN_RULES shards
+     of the seeded init (init_state(mesh=)) and calling make_train_step(
+     mesh=) on the same seeded global batch of 4 x 1025 tokens: one
+     warm-up step and MESH_STEPS steps with the launch counts zeroed just
+     before and read just after. First, in this process, the one-rank step
+     on the same init and batch (its numbers kept on the host, the card
+     freed before the ranks start). Gates: loss and grad_norm of every step
+     within MESH_LOSS_TOL / MESH_NORM_TOL of the one-rank step's, every
+     rank's the same bits; each rank's parameters after the steps within
+     MESH_PARAM_SLACK x the steps' learning rates of the slice of the
+     one-rank parameters; B1a 2 x n_layers, B1b and B1c n_layers launches
+     per rank per step, all at 16 q / 4 kv heads. Recorded: step ms per
+     rank, one more step with every collective bracketed by syncs (their
+     ms and count), the peak GiB per rank. Four ranks on one card through
+     the host, not a mesh speed;
   9. MoE serving: mixtral-8x7b at full width and depth (32 layers, 8
      experts, top-2) with LLMConfig(quantization="int8"), which starts it
      in int8 one layer at a time (its bf16 weights do not fit the card):
@@ -260,6 +280,20 @@ LSE_TOL = 2e-3  # LSE is f32 in both dtypes; only the summation order differs
 # another summation order.
 BWD_BF16_TOL = 2e-2
 BWD_F32_TOL = 2e-4
+# Phase F, the mesh step against the one-rank step on the same init and
+# batch, both in bf16 activations: the mesh adds bf16 roundings where a
+# row-parallel product's two partial sums are added (wo, w_down) and may
+# change a GEMM's accumulation order (other N); each is ~2^-9 of an
+# activation, random over 4096 tokens and two layers. Relative to the
+# one-rank value. Parameters: Adam moves an element by at most ~lr a step,
+# so two runs that differ in the gradients' last bits differ by at most
+# 2 lr a step where a gradient is near 0; a wrong slice differs by the
+# weights' own size (>= 4e-3), far above 2.5 x (1.5e-4 + 3e-4).
+MESH_LOSS_TOL = 1e-3
+MESH_NORM_TOL = 5e-3
+MESH_PARAM_SLACK = 2.5
+MESH_STEPS = 2  # counted steps after one warm-up step
+MESH_BATCH = (4, 1025)
 TRAIN_GRAD_TOL = 1e-3  # full-width f32 gradients through 2 layers, same relative form
 TRAIN_LOSS_TOL = 1e-5  # relative
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate
@@ -436,6 +470,10 @@ def backward_checks(torch, fa):
     # causal with Sq < Skv: kv rows past Sq see no query, so B1c's blocks there
     # loop over no q tile and must still write dK = dV = 0
     cases.append(dict(b=1, s=100, skv=300, h=4, hkv=2, d=64, causal=True, seg=False))
+    # one rank's heads and rows of llama8b-geom2 on phase F's fsdp 2 x tp 2
+    # mesh: the batch of 4 over fsdp, 32 / 8 heads over tp
+    cases.append(dict(b=MESH_BATCH[0] // 2, s=MESH_BATCH[1] - 1, h=16, hkv=4, d=128,
+                      causal=True, seg=False))
     for dtype, tol in ((torch.bfloat16, BWD_BF16_TOL), (torch.float32, BWD_F32_TOL)):
         for c in cases:
             b, s, h, hkv, d = c["b"], c["s"], c["h"], c["hkv"], c["d"]
@@ -944,6 +982,271 @@ def train_numerics(torch, fa, cfg=None):
     del params, leaves, grads_r, out
     torch.cuda.empty_cache()
     return report
+
+
+# phase F: training on a device mesh (A6). llama8b-geom2 on fsdp 2 x tp 2,
+# four ranks sharing cuda:0 over gloo (NCCL refuses two ranks on one device;
+# gloo stages every CUDA collective through the host), against the one-rank
+# step on the same seeded init and batch. Not a mesh speed.
+MESH = dict(fsdp=2, tp=2)
+MESH_LR = dict(warmup_steps=2, total_steps=1000)  # phase 7's optimizer
+
+
+def mesh_tokens(torch):
+    """Phase F's seeded global batch [4, 1025] of llama8b-geom2 ids, on the host."""
+    gen = torch.Generator()
+    gen.manual_seed(7)
+    return torch.randint(0, 32000, MESH_BATCH, generator=gen)
+
+
+def mesh_rank(rank, init_method, devices, tokens, ref_path, outbox):
+    """One rank of phase F (a spawned process): its TRAIN_RULES shards of
+    the seeded init, a warm-up step, MESH_STEPS steps with the kernel counts
+    zeroed just before and read just after, its shards after them against
+    the slices of the one-rank parameters at `ref_path`, then one step with
+    every collective bracketed by syncs. Puts (rank, result) or (rank,
+    traceback)."""
+    import traceback
+
+    import torch
+    import torch.distributed as dist
+
+    try:
+        from ray_tpu_torch.models import llama
+        from ray_tpu_torch.models.config import get_config
+        from ray_tpu_torch.ops import flash_attention as fa
+        from ray_tpu_torch.parallel import TRAIN_RULES, MeshSpec, build_mesh, shard_view
+        from ray_tpu_torch.train import init_state, make_optimizer, make_train_step
+
+        mesh = build_mesh(MeshSpec(**MESH), devices, rank=rank, init_method=init_method)
+        dev = torch.device(devices[rank])
+        cfg = get_config("llama8b-geom2", remat_policy="dots")
+        tx = make_optimizer(**MESH_LR)
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        state = init_state(cfg, tx, seed=0, device=dev, mesh=mesh)
+        step = make_train_step(cfg, tx, device=dev, mesh=mesh)
+        batch = {"tokens": tokens.to(dev)}
+        torch.cuda.synchronize(dev)
+        out = dict(rank=rank, coord=list(mesh.get_coordinate()), backend=dist.get_backend(),
+                   init_s=time.perf_counter() - t0, metrics=[], walls=[])
+        seen = set()  # (q heads, kv heads) at every B1a and B1b/B1c call
+        real = {name: getattr(fa, name) for name in ("flash_attention_forward",
+                                                     "flash_attention_backward")}
+
+        def spy(fn):
+            def call(q, k, v, *args, **kw):
+                seen.add((q.shape[0], q.shape[2], k.shape[2]))
+                return fn(q, k, v, *args, **kw)
+            return call
+
+        for name, fn in real.items():
+            setattr(fa, name, spy(fn))
+
+        def run():
+            nonlocal state
+            t = time.perf_counter()
+            state, m = step(state, batch)
+            torch.cuda.synchronize(dev)
+            wall = time.perf_counter() - t
+            out["metrics"].append({k: v.item() for k, v in m.items()})
+            return wall
+
+        out["warm_s"] = run()
+        torch.cuda.synchronize(dev)
+        fa.reset_launch_count()
+        # ---- the mesh path: counts zeroed just before, read just after ----
+        for _ in range(MESH_STEPS):
+            out["walls"].append(run())
+        out["launches"] = {name: fa.launch_count(name) for name in fa.KERNELS}
+        # ---- end ----
+        for name, fn in real.items():
+            setattr(fa, name, fn)
+        out["seen"] = sorted(seen)
+        out["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+        ref = torch.load(ref_path, mmap=True, weights_only=True)
+        axes = llama.param_axes(cfg)
+        errs = {}
+        for name, mine in state.params.items():
+            pairs = (mine.items() if isinstance(mine, dict) else [(None, mine)])
+            for key, leaf in pairs:
+                whole = ref[name][key] if key else ref[name]
+                ax = axes[name][key] if key else axes[name]
+                want = shard_view(whole, ax, mesh, TRAIN_RULES).to(dev)
+                errs[f"{name}/{key}" if key else name] = (leaf.detach() - want).abs().max().item()
+                del want
+        out["param_errs"] = errs
+        del ref
+        # one more step, each collective bracketed by syncs
+        coll = [0.0, 0]
+        calls = {name: getattr(dist, name) for name in ("all_reduce", "all_gather")}
+
+        def timed(fn):
+            def call(*args, **kw):
+                torch.cuda.synchronize(dev)
+                t = time.perf_counter()
+                r = fn(*args, **kw)
+                torch.cuda.synchronize(dev)
+                coll[0] += time.perf_counter() - t
+                coll[1] += 1
+                return r
+            return call
+
+        for name, fn in calls.items():
+            setattr(dist, name, timed(fn))
+        out["synced_step_s"] = run()
+        for name, fn in calls.items():
+            setattr(dist, name, fn)
+        out["collective_s"], out["collectives"] = coll
+        out["metrics"].pop()  # the synced step's: a fourth step, not gated
+        outbox.put((rank, out))
+        dist.destroy_process_group()
+    except BaseException:
+        outbox.put((rank, traceback.format_exc()))
+
+
+def mesh_reference(torch, fa, tokens):
+    """The one-rank step (phase 7's path, remat dots) on the seeded init and
+    `tokens`: the warm-up and MESH_STEPS steps -> (metrics of each, the
+    learning rate of each, the launch counts of the counted steps, the
+    parameters after them on the host)."""
+    from ray_tpu_torch.models.config import get_config
+    from ray_tpu_torch.train import init_state, make_optimizer, make_train_step
+
+    cfg = get_config("llama8b-geom2", remat_policy="dots")
+    tx = make_optimizer(**MESH_LR)
+    state = init_state(cfg, tx, seed=0)
+    step = make_train_step(cfg, tx)
+    batch = {"tokens": tokens.to("cuda")}
+    metrics, lrs = [], []
+    for i in range(1 + MESH_STEPS):
+        if i == 1:
+            torch.cuda.synchronize()
+            fa.reset_launch_count()
+        lrs.append(tx.learning_rate(state.opt_state.count))
+        state, m = step(state, batch)
+        metrics.append({k: v.item() for k, v in m.items()})
+    launches = {name: fa.launch_count(name) for name in fa.KERNELS}
+    params = {name: ({k: v.detach().cpu() for k, v in val.items()} if isinstance(val, dict)
+                     else val.detach().cpu()) for name, val in state.params.items()}
+    del state, step, batch
+    torch.cuda.empty_cache()
+    return metrics, lrs, launches, params
+
+
+def mesh_ranks(torch, devices, tokens, ref_path):
+    """Run mesh_rank on len(devices) spawned ranks -> their results by rank;
+    exits if a rank fails or does not answer within 300 s, and joins them
+    all (killing what is left)."""
+    import multiprocessing
+    import queue
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        init_method = f"tcp://127.0.0.1:{s.getsockname()[1]}"
+    ctx = multiprocessing.get_context("spawn")
+    outbox = ctx.Queue()
+    procs = [ctx.Process(target=mesh_rank, daemon=True,
+                         args=(r, init_method, devices, tokens, ref_path, outbox))
+             for r in range(len(devices))]
+    for p in procs:
+        p.start()
+    got = {}
+    try:
+        for _ in procs:
+            rank, out = outbox.get(timeout=300)
+            if isinstance(out, str):
+                raise SystemExit(f"phase F rank {rank} failed:\n{out}")
+            got[rank] = out
+    except queue.Empty:
+        raise SystemExit("phase F: a rank did not answer within 300 s") from None
+    finally:
+        for p in procs:
+            p.join(30)
+            if p.is_alive():
+                p.kill()
+                p.join(5)
+    return got
+
+
+def mesh_train_path(torch, fa, card):
+    """Phase F: the one-rank reference in this process, then the mesh step
+    on four ranks sharing cuda:0 (see the module docstring)."""
+    import shutil
+
+    from ray_tpu_torch.models.config import get_config
+
+    t_phase = time.perf_counter()
+    cfg = get_config("llama8b-geom2")
+    held = torch.cuda.memory_allocated()
+    if held > 2 * 2**30:
+        raise SystemExit(f"{held / 2**30:.2f} GiB still allocated before phase F")
+    tokens = mesh_tokens(torch)
+    t0 = time.perf_counter()
+    ref_metrics, lrs, ref_launches, ref_params = mesh_reference(torch, fa, tokens)
+    ref_s = time.perf_counter() - t0
+    want = launches_per_step(cfg.n_layers)
+    if ref_launches != {k: MESH_STEPS * n for k, n in want.items()}:
+        raise SystemExit(f"phase F one-rank launches {ref_launches}, want {MESH_STEPS} x {want}")
+    out_dir = checkpoint_dir(4 * cfg.n_params)
+    ref_path = os.path.join(out_dir, "reference_params.pt")
+    try:
+        torch.save(ref_params, ref_path)
+        del ref_params
+        devices = ["cuda:0"] * (MESH["fsdp"] * MESH["tp"])
+        t0 = time.perf_counter()
+        got = mesh_ranks(torch, devices, tokens, ref_path)
+        ranks_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    print(f"  one-rank reference (B{MESH_BATCH[0]} x {MESH_BATCH[1]}, remat dots): losses "
+          f"{[m['loss'] for m in ref_metrics]}, grad_norms "
+          f"{[m['grad_norm'] for m in ref_metrics]}, lrs {lrs}, launches {ref_launches}; "
+          f"{ref_s:.1f} s", flush=True)
+    slack = MESH_PARAM_SLACK * sum(lrs)
+    errs = []
+    for r, o in sorted(got.items()):
+        loss_rel = [abs(m["loss"] - w["loss"]) / abs(w["loss"])
+                    for m, w in zip(o["metrics"], ref_metrics)]
+        norm_rel = [abs(m["grad_norm"] - w["grad_norm"]) / abs(w["grad_norm"])
+                    for m, w in zip(o["metrics"], ref_metrics)]
+        worst = max(o["param_errs"].items(), key=lambda kv: kv[1])
+        errs.append(dict(loss_rel=loss_rel, norm_rel=norm_rel, param_max=worst))
+        print(f"  rank {r} at {o['coord']} ({o['backend']}): losses "
+              f"{[m['loss'] for m in o['metrics']]} (rel {[f'{e:.2e}' for e in loss_rel]}, "
+              f"tol {MESH_LOSS_TOL}), grad_norms {[m['grad_norm'] for m in o['metrics']]} "
+              f"(rel {[f'{e:.2e}' for e in norm_rel]}, tol {MESH_NORM_TOL}); params after "
+              f"{1 + MESH_STEPS} steps: worst max|d| {worst[1]:.3e} at {worst[0]} (tol "
+              f"{slack:.3e}); launches over {MESH_STEPS} steps {o['launches']} at (rows, q "
+              f"heads, kv heads) {o['seen']}; shards in {o['init_s']:.2f} s, warm-up "
+              f"{o['warm_s']:.2f} s, steps {[f'{w * 1e3:.1f}' for w in o['walls']]} ms, "
+              f"synced step {o['synced_step_s'] * 1e3:.1f} ms of which "
+              f"{o['collective_s'] * 1e3:.1f} ms in {o['collectives']} collectives; peak "
+              f"{o['peak_gib']:.2f} GiB [4 ranks sharing one H100 over gloo; {card}]",
+              flush=True)
+    wall = time.perf_counter() - t_phase
+    print(f"  ranks {ranks_s:.1f} s; phase F took {wall:.1f} s", flush=True)
+    same = all(o["metrics"] == got[0]["metrics"] for o in got.values())
+    heads = [(MESH_BATCH[0] // MESH["fsdp"], cfg.n_heads // MESH["tp"],
+              cfg.n_kv_heads // MESH["tp"])]
+    for r, o in got.items():
+        if o["launches"] != {k: MESH_STEPS * n for k, n in want.items()} or o["seen"] != heads:
+            raise SystemExit(f"phase F rank {r}: launches {o['launches']} at {o['seen']}, want "
+                             f"{MESH_STEPS} x {want} at {heads}")
+    if not same:
+        raise SystemExit("phase F: the ranks' metrics differ")
+    for r, e in enumerate(errs):
+        if (max(e["loss_rel"]) > MESH_LOSS_TOL or max(e["norm_rel"]) > MESH_NORM_TOL
+                or not e["param_max"][1] <= slack):
+            raise SystemExit(f"phase F rank {r} disagrees with the one-rank step: {e}")
+    left = torch.cuda.memory_allocated()
+    return dict(mesh=MESH, batch=MESH_BATCH, devices=devices, reference=dict(
+        metrics=ref_metrics, lrs=lrs, launches=ref_launches, s=ref_s), errs=errs,
+        ranks={r: {k: v for k, v in o.items()} for r, o in got.items()},
+        launches_per_rank_per_step={k: v // MESH_STEPS for k, v in got[0]["launches"].items()},
+        tol=dict(loss=MESH_LOSS_TOL, grad_norm=MESH_NORM_TOL, params=slack), ranks_s=ranks_s,
+        left_gib=left / 2**30, wall_s=wall)
 
 
 def rel_err(got, ref):
@@ -1520,7 +1823,9 @@ def spec_path(torch, fa, card, params):
         owner, name = (model_runner, "spec_multi") if layout == "slot" else \
             (paged, "spec_multi_paged")
         real = getattr(owner, name)
-        for batch in SPEC_BATCHES:
+        # the paged layout at the largest batch only: its oracle runs the
+        # same spec_multi_paged calls at every batch
+        for batch in SPEC_BATCHES if layout == "slot" else SPEC_BATCHES[-1:]:
             reqs = [(prompt, SamplingParams(max_tokens=SPEC_GEN, **greedy))] * batch
             f32 = dict(dtype="float32", engine_kwargs=dict(dtype="float32"),
                        max_num_seqs=batch)
@@ -1905,7 +2210,7 @@ def pd_path(torch, fa, card, params):
 MOE = dict(model_source="mixtral-8x7b", quantization="int8", max_num_seqs=8, max_model_len=1024)
 MOE_NODROP = 4.0  # capacity factor at which C = T: no pick is dropped, prefill == decode
 MOE_STEPS = 8  # greedy decode steps of the no-drop check
-MOE_GEN = 32  # tokens per served MoE request
+MOE_GEN = 16  # tokens per served MoE request
 MOE_START_PEAK_GIB = 60.0
 
 
@@ -4593,6 +4898,11 @@ def sass_counts(_build):
     return out
 
 
+def header(t_start, text):
+    """A phase's header line, with the seconds since the run started."""
+    print(f"{text} ({time.perf_counter() - t_start:.1f} s into the run)", flush=True)
+
+
 def build_all(_build):
     """One nvcc per library, all started together; then load each."""
     with ThreadPoolExecutor(len(_build.LIBRARIES)) as pool:
@@ -4632,7 +4942,7 @@ def main() -> int:
         print(f"  sass {func}: " + ", ".join(f"{op} {n}" for op, n in counts.items()),
               flush=True)
 
-    print("[2] kernels against their plain versions", flush=True)
+    header(t_start, "[2] kernels against their plain versions")
     for func in WGMMA_KERNELS:  # every bf16 kernel runs on wgmma, fed by TMA, spilling nothing
         counts = sass.get(func, {})
         if not counts.get("HGMMA") or not counts.get("UTMALDG") or counts.get("HMMA", 1):
@@ -4648,36 +4958,34 @@ def main() -> int:
     timings = kernel_timings(torch, fa, buckets)
     train_timings, sdpa_bwd = training_timings(torch, fa)
 
-    print("[3] serving path: llama3-8b served on the card", flush=True)
+    header(t_start, "[3] serving path: llama3-8b served on the card")
     served, params = main_path(torch, fa, card)
 
-    print("[4] served model output against the plain path", flush=True)
+    header(t_start, "[4] served model output against the plain path")
     numerics = output_check(torch)
 
-    print("[T] tensor parallelism: llama3-8b at tp 2 on one card, against tp 1 on phase 3's "
-          "weights, and served", flush=True)
+    header(t_start, "[T] tensor parallelism: llama3-8b at tp 2 on one card, against tp 1 on phase 3's "
+          "weights, and served")
     tp_served = tp_path(torch, fa, card, params)
 
-    print("[5] paged serving: llama3-8b with bench_serve's paged settings", flush=True)
+    header(t_start, "[5] paged serving: llama3-8b with bench_serve's paged settings")
     paged_served = paged_path(torch, fa, card, params)
 
-    print("[6] int8 weights and n-gram speculation: llama3-8b on the same weights",
-          flush=True)
+    header(t_start, "[6] int8 weights and n-gram speculation: llama3-8b on the same weights")
     quant_served = quant_path(torch, fa, card, params, served)
     spec_served = spec_path(torch, fa, card, params)
 
-    print("[6b] P/D disaggregation and the serving surface: llama3-8b on the same weights",
-          flush=True)
+    header(t_start, "[6b] P/D disaggregation and the serving surface: llama3-8b on the same "
+           "weights")
     pd_served = pd_path(torch, fa, card, params)
 
-    print("[A] a llama3-8b checkpoint in HF's release layout (bf16, 4 shards): written, "
-          "loaded and served", flush=True)
+    header(t_start, "[A] a llama3-8b checkpoint in HF's release layout (bf16, 4 shards): written, "
+          "loaded and served")
     ckpt_served = checkpoint_serve_path(torch, fa, card, params, served)
     del params
     torch.cuda.empty_cache()
 
-    print("[7] training path: llama8b-geom2 trained on the card, remat dots and full",
-          flush=True)
+    header(t_start, "[7] training path: llama8b-geom2 trained on the card, remat dots and full")
     trained_runs = {policy: train_path(torch, fa, card, policy) for policy in ("dots", "full")}
     trained = trained_runs["dots"]  # bench.py's policy
     print(f"  dots against full: step {trained['step_ms']:.2f} vs "
@@ -4685,36 +4993,39 @@ def main() -> int:
           f"{trained_runs['full']['mfu_bf16_peak']:.4f}, peak {trained['peak_gib']:.2f} vs "
           f"{trained_runs['full']['peak_gib']:.2f} GiB [{card}]", flush=True)
 
-    print("[8] training gradients against the plain path", flush=True)
+    header(t_start, "[8] training gradients against the plain path")
     train_check = train_numerics(torch, fa)
 
-    print("[9] MoE serving: mixtral-8x7b, int8, one card", flush=True)
+    header(t_start, "[F] training on a device mesh: llama8b-geom2 on fsdp 2 x tp 2, four ranks sharing "
+          "the card over gloo, against the one-rank step")
+    mesh_trained = mesh_train_path(torch, fa, card)
+
+    header(t_start, "[9] MoE serving: mixtral-8x7b, int8, one card")
     moe_served = moe_path(torch, fa, card)
 
-    print("[B] MoE training: mixtral-8x7b's geometry at 2 layers trained on the card, saved, "
-          "loaded, warm-started and served in int8 from the directory", flush=True)
+    header(t_start, "[B] MoE training: mixtral-8x7b's geometry at 2 layers trained on the card, saved, "
+          "loaded, warm-started and served in int8 from the directory")
     moe_trained = moe_train_path(torch, fa, card)
 
-    print("[R] RLlib PPO on the card: the learner at bench_rllib's geometry, PPO on its "
-          "Atari-shaped env, the GAE and V-trace scans", flush=True)
+    header(t_start, "[R] RLlib PPO on the card: the learner at bench_rllib's geometry, PPO on its "
+          "Atari-shaped env, the GAE and V-trace scans")
     rl = rl_path(torch, fa, card)
 
-    print("[O] RLlib off-policy and offline on the card: DQN, SAC, CQL and MARWIL learners "
+    header(t_start, "[O] RLlib off-policy and offline on the card: DQN, SAC, CQL and MARWIL learners "
           "against the CPU, DQN on CartPole, SAC on Pendulum, BC, MARWIL and CQL from "
-          "recorded rows", flush=True)
+          "recorded rows")
     rl_off = rl_offpolicy_path(torch, fa, card)
 
-    print("[M] RLlib multi-agent PPO on the card: a two-module learner at bench_rllib's "
-          "geometry against the CPU, a shared and two separate policies on CartPole copies",
-          flush=True)
+    header(t_start, "[M] RLlib multi-agent PPO on the card: a two-module learner at bench_rllib's "
+          "geometry against the CPU, a shared and two separate policies on CartPole copies")
     rl_ma = rl_multi_agent_path(torch, fa, card, rl["learner"]["minibatch_update_ms"])
 
-    print("[D] RLlib DreamerV3 on the card: the learner at the JAX defaults against the "
-          "CPU, DreamerV3 on CartPole, the world-model loss and a checkpoint", flush=True)
+    header(t_start, "[D] RLlib DreamerV3 on the card: the learner at the JAX defaults against the "
+          "CPU, DreamerV3 on CartPole, the world-model loss and a checkpoint")
     rl_dreamer = rl_dreamer_path(torch, fa, card)
 
-    print("[I] RLlib IMPALA and APPO on the card: both learners at bench_rllib's widths "
-          "against the CPU, IMPALA on CartPole, APPO's checkpoint", flush=True)
+    header(t_start, "[I] RLlib IMPALA and APPO on the card: both learners at bench_rllib's widths "
+          "against the CPU, IMPALA on CartPole, APPO's checkpoint")
     rl_impala = rl_impala_path(torch, fa, card)
 
     sources = {"flash_fwd": ("ray_tpu_torch/ops/csrc/flash_fwd.cu",
@@ -4749,6 +5060,8 @@ def main() -> int:
                                       for r in spec_served[layout].values())
     kernels[0]["launches_moe"] = moe_served["launches"]
     kernels[0]["launches_pd"] = pd_served["launches"]
+    for k in kernels:  # per rank per step, on each rank's B2 and H16/KV4
+        k["launches_train_mesh"] = mesh_trained["launches_per_rank_per_step"][k["name"]]
     kernels[0]["launches_tp"] = {  # per rank per prefill at H16/KV4; rank 0 while served
         "per_rank_per_prefill": tp_served["logits"]["gloo"]["ranks"][0]["launches"],
         **{name: tp_served[name]["launches"] for name in ("slot", "paged", "int8")}}
@@ -4778,7 +5091,8 @@ def main() -> int:
                   served=served, numerics=numerics, tensor_parallel=tp_served,
                   paged=paged_served,
                   int8=quant_served, spec=spec_served, pd=pd_served,
-                  trained=trained_runs, train_numerics=train_check, moe=moe_served,
+                  trained=trained_runs, train_numerics=train_check,
+                  mesh_training=mesh_trained, moe=moe_served,
                   checkpoint=ckpt_served, moe_trained=moe_trained, rl=rl,
                   rl_offpolicy=rl_off, rl_multi_agent=rl_ma, rl_dreamer=rl_dreamer,
                   rl_impala=rl_impala,

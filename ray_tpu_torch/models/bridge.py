@@ -11,8 +11,9 @@ becomes the port's ``ops.quant.QTensor``: q stays int8, s f32, its shape the
 weight's with the contraction axis kept as 1 (axis 2 for an expert stack
 [L, E, d_in, out], 1 for the other layer leaves, 0 for the head). With a
 device mesh, ``params_from_jax`` returns this rank's shard of the tree
-(``parallel.shard_pytree`` by ``llama.param_axes``), which a test holds
-against the JAX leaf's shard on the same tp index.
+(``parallel.shard_pytree`` by ``llama.param_axes`` and the given rules),
+which a test holds against the JAX leaf's shard on the same mesh
+coordinates.
 """
 from __future__ import annotations
 
@@ -23,7 +24,7 @@ import torch
 
 from ray_tpu_torch.device import resolve_device
 from ray_tpu_torch.ops.quant import QTensor, layer_contract_axis, scale_shape
-from ray_tpu_torch.parallel.sharding import INFER_RULES, shard_pytree
+from ray_tpu_torch.parallel.sharding import INFER_RULES, AxisRules, shard_pytree
 from ray_tpu_torch.train.optim import AdamWState
 
 from . import llama
@@ -54,9 +55,10 @@ def _leaf(arr, shape, where: str, device, dtype, axis: int = 0):
 
 
 def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig, device=None,
-                    dtype: torch.dtype = torch.float32, mesh=None) -> llama.Params:
+                    dtype: torch.dtype = torch.float32, mesh=None,
+                    rules: AxisRules = INFER_RULES) -> llama.Params:
     """JAX llama pytree (numpy leaves) -> the port's parameter dict on `device`
-    (with a `mesh`, this rank's shard of it by INFER_RULES).
+    (with a `mesh`, this rank's shard of it by `rules`).
 
     A JAX tree with per-layer lists (scan_layers=False) is stacked on [L].
     int8 leaves (of a scanned tree) keep their dtypes whatever `dtype` is."""
@@ -81,7 +83,7 @@ def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig, device=None,
     for name, shape in shapes.items():
         if name != "layers":
             out[name] = _leaf(tree[name], shape, name, dev, dtype)
-    return out if mesh is None else shard_pytree(out, llama.param_axes(cfg), mesh, INFER_RULES)
+    return out if mesh is None else shard_pytree(out, llama.param_axes(cfg), mesh, rules)
 
 
 def params_to_numpy(params: llama.Params) -> Dict[str, Any]:

@@ -18,22 +18,33 @@ recomputes each layer in the backward pass (``torch.utils.checkpoint``);
 ``dots`` and ``dots_no_batch`` save the layer's matrix products and
 recompute the rest (selective checkpointing).
 
-Tensor parallelism (serving): with a ``mesh`` whose "tp" axis holds n > 1
-ranks, each rank holds its shard of the weights (``param_axes`` and
+Tensor parallelism: with a ``mesh`` whose "tp" axis holds n > 1 ranks,
+each rank holds its shard of the weights (``param_axes`` and
 ``parallel.shard_pytree``: heads, kv heads, the MLP's hidden units and the
 vocabulary cut in n) and runs the same forward on it. Head counts come from
 the local weights' shapes; the attention output projection and the MLP's
-down projection end in an all-reduce over "tp"; the embedding is a
-vocab-parallel lookup (each rank's rows, the others masked, then an
-all-reduce), and the logits are all-gathered over the vocabulary, so every
-rank holds the same logits. Where JAX's sharded lookup is a one-hot product
-(out-of-range ids embed to zeros), the port keeps the gather's wrap-then-
-clamp on the global vocabulary. A mixture-of-experts MLP under tp > 1 (the
-experts' "mlp" axis and "ep") is ROADMAP A6.
+down projection end in an all-reduce over "tp", and the column-parallel
+products (wq/wk/wv, w_gate/w_up, the head) begin with ``copy_to`` (the
+identity, whose backward sums the gradient over "tp": Megatron's f/g pair);
+the embedding is a vocab-parallel lookup (each rank's rows, the others
+masked, then an all-reduce), and the logits are all-gathered over the
+vocabulary, so every rank holds the same logits, unless the caller keeps
+each rank's columns (``local_logits``: the loss's vocab-parallel cross
+entropy). Where JAX's sharded lookup is a one-hot product (out-of-range ids
+embed to zeros), the port keeps the gather's wrap-then-clamp on the global
+vocabulary.
 
-Branches of the JAX module that the port does not run yet raise
-NotImplementedError naming their ROADMAP item: ring/ulysses attention and
-pipeline stages (A6).
+Training on a mesh (``loss_fn(mesh=)``, TRAIN_RULES by default, as
+ray_tpu/train/step.py shards by them): every leaf is also cut over "fsdp"
+along its "embed" dim, and the forward gathers a layer's leaves where the
+layer uses them (``parallel.gather_leaf``: inside the remat body, so a
+remat policy gathers again in the backward instead of keeping every layer
+whole; the gather's backward is a reduce-scatter); each rank takes its
+slice of the global batch by the rules' "batch" axes (dp, fsdp), and the
+loss is the global token mean. A mixture-of-experts model under tp > 1 or on
+a training mesh (the experts' "mlp" axis and "ep"), sequence parallelism
+(sp, ring/ulysses attention) and pipeline stages (pp) raise
+NotImplementedError naming ROADMAP A6.
 """
 from __future__ import annotations
 
@@ -51,8 +62,9 @@ from ray_tpu_torch.ops.quant import (LLAMA_QUANT_KEYS, QTensor, as_weight, empty
                                      layer_contract_axis, quantize, quantize_layer,
                                      quantize_layer_)
 from ray_tpu_torch.parallel.mesh import axis_index, axis_size
-from ray_tpu_torch.parallel.sharding import (INFER_RULES, all_gather, all_reduce,
-                                             local_shape, shard_leaf, shard_view)
+from ray_tpu_torch.parallel.sharding import (INFER_RULES, TRAIN_RULES, AxisRules, all_gather,
+                                             all_reduce, copy_to, gather_leaf, local_shape,
+                                             shard_leaf, shard_view)
 
 from . import moe
 from .config import ModelConfig
@@ -123,6 +135,23 @@ def check_tensor_parallel(cfg: ModelConfig, mesh) -> None:
             "axis and ep): ROADMAP A6")
 
 
+def check_training_mesh(cfg: ModelConfig, mesh) -> None:
+    """Refuse what training on a mesh does not run yet: a MoE model (its
+    experts over "ep"), and sp or pp axes of more than one rank (ROADMAP
+    A6)."""
+    if mesh is None:
+        return
+    if cfg.n_experts > 0:
+        raise NotImplementedError(
+            "a mixture-of-experts model on a training mesh (expert parallelism, ep): "
+            "ROADMAP A6")
+    for axis, what in (("sp", "sequence parallelism (ring/ulysses attention)"),
+                       ("pp", "pipeline parallelism")):
+        if axis_size(mesh, axis) > 1:
+            raise NotImplementedError(f"{what}: a training mesh with {axis} = "
+                                      f"{axis_size(mesh, axis)}: ROADMAP A6")
+
+
 def _init_scales(cfg: ModelConfig) -> Dict[str, float]:
     """Per-leaf init scales of ray_tpu/models/llama.py:65-110 and
     ray_tpu/models/moe.py:130-141 (0 = ones)."""
@@ -141,7 +170,7 @@ def _init_scales(cfg: ModelConfig) -> Dict[str, float]:
 @torch.no_grad()
 def init(cfg: ModelConfig, *, seed: int = 0, device=None,
          dtype: torch.dtype = torch.float32, quantize_int8: bool = False,
-         mesh=None) -> Params:
+         mesh=None, rules: AxisRules = INFER_RULES) -> Params:
     """Scaled-normal init with the JAX package's shapes and scale rules
     (ray_tpu/models/llama.py:65-110, moe.py:130-141): inputs d^-0.5, wo
     (2*L*d)^-0.5, w_down (2*L*ff)^-0.5, embed 1.0, lm_head d^-0.5, norms 1.
@@ -157,9 +186,9 @@ def init(cfg: ModelConfig, *, seed: int = 0, device=None,
     seed=seed, dtype=dtype)), without ever holding the float model.
 
     With a `mesh`, each rank draws every piece whole (the same numbers on
-    every rank), quantizes it whole, and keeps its shard by INFER_RULES: bit
-    for bit shard_pytree of the unsharded init, holding the shards plus one
-    piece."""
+    every rank), quantizes it whole, and keeps its shard by `rules`
+    (INFER_RULES for serving, TRAIN_RULES for training): bit for bit
+    shard_pytree of the unsharded init, holding the shards plus one piece."""
     dev = resolve_device(device)
     check_tensor_parallel(cfg, mesh)
     shapes, scales, axes = param_shapes(cfg), _init_scales(cfg), param_axes(cfg)
@@ -174,15 +203,15 @@ def init(cfg: ModelConfig, *, seed: int = 0, device=None,
         return torch.ones(shape, device=dev, dtype=dtype)
 
     def shard(x, leaf_axes):  # a copy: the whole draw is freed
-        return shard_leaf(x, leaf_axes, mesh, INFER_RULES)
+        return shard_leaf(x, leaf_axes, mesh, rules)
 
     def piece(x, leaf_axes):  # a view: the store into the leaf copies it
-        return shard_view(x, leaf_axes[1:], mesh, INFER_RULES)
+        return shard_view(x, leaf_axes[1:], mesh, rules)
 
     ls, la = shapes["layers"], axes["layers"]
     layers: Params = {}
     for name, shape in ls.items():
-        shape = local_shape(shape, la[name], mesh, INFER_RULES)
+        shape = local_shape(shape, la[name], mesh, rules)
         if quantize_int8 and name in LLAMA_QUANT_KEYS:
             layers[name] = empty_qtensor(shape, layer_contract_axis(name, ls), dev)
         elif scales[name] == 0.0:
@@ -204,7 +233,7 @@ def init(cfg: ModelConfig, *, seed: int = 0, device=None,
     params: Params = {
         "embed": shard(draw(shapes["embed"], 1.0), axes["embed"]),
         "layers": layers,
-        "final_norm": ones(shapes["final_norm"]),
+        "final_norm": ones(local_shape(shapes["final_norm"], axes["final_norm"], mesh, rules)),
     }
     if not cfg.tie_embeddings:
         head = draw(shapes["lm_head"], scales["lm_head"])
@@ -331,18 +360,25 @@ def layer_params(params: Params, i: int) -> Params:
             for name, w in params["layers"].items()}
 
 
-def lm_head(params: Params, cfg: ModelConfig) -> torch.Tensor:
+def lm_head(params: Params, cfg: ModelConfig, mesh=None,
+            rules: AxisRules = INFER_RULES) -> torch.Tensor:
     """[d, V] output projection (the embedding's transpose when tied); under
-    tp > 1 this rank's [d, V / tp] columns."""
-    head = params["embed"].t() if cfg.tie_embeddings else params["lm_head"]
+    tp > 1 this rank's [d, V / tp] columns, gathered over fsdp where `rules`
+    cut it there."""
+    if cfg.tie_embeddings:
+        head = gather_leaf(params["embed"], ("vocab", "embed"), mesh, rules).t()
+    else:
+        head = gather_leaf(params["lm_head"], ("embed", "vocab"), mesh, rules)
     return as_weight(head, cfg.activation_dtype)
 
 
-def logits_of(x: torch.Tensor, params: Params, cfg: ModelConfig, mesh=None) -> torch.Tensor:
+def logits_of(x: torch.Tensor, params: Params, cfg: ModelConfig, mesh=None,
+              rules: AxisRules = INFER_RULES, local: bool = False) -> torch.Tensor:
     """Normed hidden states [B, S, d] -> f32 logits [B, S, V]: the head's
-    product, all-gathered over the vocabulary under tp > 1."""
-    local = torch.einsum("bsd,dv->bsv", x, lm_head(params, cfg))
-    return all_gather(local, mesh, "tp", dim=-1).float()
+    product, all-gathered over the vocabulary under tp > 1 (with
+    local=True, this rank's [B, S, V / tp] columns)."""
+    out = torch.einsum("bsd,dv->bsv", copy_to(x, mesh), lm_head(params, cfg, mesh, rules))
+    return (out if local else all_gather(out, mesh, "tp", dim=-1)).float()
 
 
 # ------------------------------------------------------------------------- forward
@@ -387,7 +423,7 @@ def _block(
     Under tp > 1 the heads are this rank's (the local weights' shapes), and
     the output projection's partial sums are all-reduced."""
     dt = x.dtype
-    h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
+    h = copy_to(rms_norm(x, lp["attn_norm"], cfg.norm_eps), mesh)
     q = torch.einsum("bsd,dhk->bshk", h, as_weight(lp["wq"], dt))
     k = torch.einsum("bsd,dhk->bshk", h, as_weight(lp["wk"], dt))
     v = torch.einsum("bsd,dhk->bshk", h, as_weight(lp["wv"], dt))
@@ -422,8 +458,9 @@ def mlp(h: torch.Tensor, lp: Params, cfg: ModelConfig,
     or None): SwiGLU, or the capacity-dispatch MoE over the B*S tokens
     (ray_tpu/models/llama.py:259-272). token_mask [B, S], 1 = a real token
     (MoE only): pads and inactive slots claim no expert capacity. Under
-    tp > 1 the hidden units are this rank's and the down projection's
-    partial sums are all-reduced."""
+    tp > 1 the hidden units are this rank's, the input's gradient is summed
+    over "tp" (copy_to) and the down projection's partial sums are
+    all-reduced."""
     dt = h.dtype
     check_tensor_parallel(cfg, mesh)
     if cfg.n_experts > 0:
@@ -432,6 +469,7 @@ def mlp(h: torch.Tensor, lp: Params, cfg: ModelConfig,
                              lp["w_down"], cfg,
                              mask=None if token_mask is None else token_mask.reshape(b * s))
         return y.reshape(b, s, d), aux
+    h = copy_to(h, mesh)
     gate = torch.einsum("bsd,df->bsf", h, as_weight(lp["w_gate"], dt))
     up = torch.einsum("bsd,df->bsf", h, as_weight(lp["w_up"], dt))
     down = torch.einsum("bsf,fd->bsd", F.silu(gate) * up, as_weight(lp["w_down"], dt))
@@ -450,6 +488,8 @@ def forward(
     token_mask: Optional[torch.Tensor] = None,  # [B, S] 1 = real; MoE capacity masking
     mesh=None,
     at: Optional[int] = None,
+    rules: AxisRules = INFER_RULES,
+    local_logits: bool = False,
 ):
     """tokens [B, S] -> (logits [B, S, vocab] f32, updated cache or None).
     With `at`, only position `at` goes through the final norm and the head
@@ -460,19 +500,29 @@ def forward(
     return_aux=True also returns the MoE load-balancing loss summed over the
     layers (a zero for dense configs). Without a cache each layer goes
     through _maybe_remat. With a `mesh`, params and cache are this rank's
-    shards (tensor parallelism, inference only) and every rank returns the
-    whole logits."""
+    shards by `rules` (INFER_RULES: tensor-parallel serving; TRAIN_RULES:
+    also cut over fsdp, each leaf gathered where it is used), tokens are
+    this rank's rows, and every rank returns the whole logits of them, or
+    with local_logits=True its [B, S, V / tp] columns. Differentiable
+    throughout: the collectives carry their gradients."""
     if cfg.pipeline_stages > 1 and cache is None:
         raise NotImplementedError("pipeline_stages > 1: ROADMAP A6")
     b, s = tokens.shape
     if positions is None:
         start = cache.length if cache is not None else 0
         positions = (torch.arange(s, device=tokens.device) + start)[None, :].expand(b, s)
-    x = _embed_lookup(params["embed"], tokens, cfg.activation_dtype, mesh)
+    axes = param_axes(cfg)
+    x = _embed_lookup(gather_leaf(params["embed"], axes["embed"], mesh, rules), tokens,
+                      cfg.activation_dtype, mesh)
+
+    def gathered(lp):  # a layer's leaves joined over fsdp where the rules cut them
+        return {name: gather_leaf(w, axes["layers"][name][1:], mesh, rules)
+                for name, w in lp.items()}
+
     if cache is None:
         def body(h, lp):
-            h, _, aux = _block(h, lp, cfg, positions, segment_ids, token_mask=token_mask,
-                               mesh=mesh)
+            h, _, aux = _block(h, gathered(lp), cfg, positions, segment_ids,
+                               token_mask=token_mask, mesh=mesh)
             return h, aux
 
         layer = _maybe_remat(body, cfg)
@@ -480,7 +530,7 @@ def forward(
     for i in range(cfg.n_layers):
         lp = layer_params(params, i)
         if cache is not None:
-            x, _, aux = _block(x, lp, cfg, positions, segment_ids,
+            x, _, aux = _block(x, gathered(lp), cfg, positions, segment_ids,
                                (cache.k[i], cache.v[i]), cache.length, token_mask, mesh)
         else:
             x, aux = layer(x, lp)
@@ -491,33 +541,77 @@ def forward(
         new_cache = KVCache(cache.k, cache.v, cache.length + s)
     if at is not None:
         x = x[:, at:at + 1]
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    logits = logits_of(x, params, cfg, mesh)
+    x = rms_norm(x, gather_leaf(params["final_norm"], axes["final_norm"], mesh, rules),
+                 cfg.norm_eps)
+    logits = logits_of(x, params, cfg, mesh, rules, local=local_logits)
     if return_aux:
         return logits, new_cache, aux_total
     return logits, new_cache
 
 
-def loss_fn(params: Params, batch: Dict[str, torch.Tensor],
-            cfg: ModelConfig) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+def batch_axes(rules: AxisRules) -> Tuple[str, ...]:
+    """The mesh axes of the logical "batch" axis (dp, fsdp by TRAIN_RULES)."""
+    axes = rules["batch"]
+    return (axes,) if isinstance(axes, str) else tuple(axes or ())
+
+
+def batch_sum(x: torch.Tensor, mesh, rules: AxisRules = TRAIN_RULES) -> torch.Tensor:
+    """x summed over every mesh axis of the batch (differentiable: each
+    rank's gradient flows to its own part)."""
+    for axis in batch_axes(rules):
+        x = all_reduce(x, mesh, axis)
+    return x
+
+
+def _vocab_parallel_ll(logits: torch.Tensor, targets: torch.Tensor, mesh) -> torch.Tensor:
+    """log p(target) from each rank's [B, S, V / tp] f32 logits columns:
+    the row maximum, the sum of exponentials and the target's logit are
+    reduced over "tp", and the whole vocabulary is never gathered."""
+    v_local = logits.shape[-1]
+    m = all_reduce(logits.detach().amax(dim=-1), mesh, "tp", op="max")
+    sumexp = all_reduce((logits - m[..., None]).exp().sum(dim=-1), mesh, "tp")
+    local = targets - axis_index(mesh, "tp") * v_local
+    mine = (local >= 0) & (local < v_local)
+    tgt = logits.gather(-1, local.clamp(0, v_local - 1)[..., None])[..., 0]
+    tgt = all_reduce(torch.where(mine, tgt, torch.zeros_like(tgt)), mesh, "tp")
+    return tgt - (m + sumexp.log())
+
+
+def loss_fn(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig, *,
+            mesh=None, rules: AxisRules = TRAIN_RULES
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Next-token cross entropy (ray_tpu/models/llama.py:437-460). batch:
     tokens [B, S]; optional loss_mask [B, S] and segment_ids [B, S]. Inputs
     are tokens[:, :-1], targets tokens[:, 1:]; the mean runs over the masked
-    targets, with a denominator of at least 1."""
+    targets, with a denominator of at least 1.
+
+    With a `mesh`, params are this rank's shards by `rules` and batch is the
+    GLOBAL batch, of which the rank computes its rows (the rules' "batch"
+    axes); the cross entropy is vocab-parallel over "tp", and Σ(ll·mask)
+    and Σmask are summed over the batch axes before the division, so the
+    loss and the metrics are the global token mean's, the same on every
+    rank (not a mean of the ranks' means)."""
+    check_training_mesh(cfg, mesh)
+    if mesh is not None:
+        batch = {k: shard_view(v, ("batch", None), mesh, rules) for k, v in batch.items()}
     tokens = batch["tokens"]
     seg = batch.get("segment_ids")
     logits, _, aux = forward(params, tokens[:, :-1], cfg,
                              segment_ids=None if seg is None else seg[:, :-1],
-                             return_aux=True)
+                             return_aux=True, mesh=mesh, rules=rules, local_logits=True)
     targets = tokens[:, 1:].long()
-    # target logit minus logsumexp == log_softmax gathered at the target,
-    # without a second [B, S, vocab] f32 tensor
-    lse = torch.logsumexp(logits, dim=-1)
-    tgt = logits.gather(-1, targets[..., None])[..., 0]
-    ll = tgt - lse
+    if axis_size(mesh, "tp") > 1:
+        ll = _vocab_parallel_ll(logits, targets, mesh)
+    else:
+        # target logit minus logsumexp == log_softmax gathered at the target,
+        # without a second [B, S, vocab] f32 tensor
+        lse = torch.logsumexp(logits, dim=-1)
+        tgt = logits.gather(-1, targets[..., None])[..., 0]
+        ll = tgt - lse
     mask = batch.get("loss_mask")
     mask = torch.ones_like(ll) if mask is None else mask[:, 1:].to(ll.dtype)
-    denom = mask.sum().clamp_min(1.0)
-    ce = -(ll * mask).sum() / denom
+    with torch.no_grad():
+        denom = batch_sum(mask.sum(), mesh, rules).clamp_min(1.0)
+    ce = -batch_sum((ll * mask).sum(), mesh, rules) / denom
     loss = ce + aux
     return loss, {"loss": loss, "ce_loss": ce, "moe_aux_loss": aux, "tokens": denom}

@@ -2,9 +2,10 @@
 parallelism (port of ray_tpu/parallel/mesh.py and sharding.py)."""
 from .mesh import AXIS_ORDER, MeshSpec, axis_index, axis_size, build_mesh, mesh_backend
 from .sharding import (INFER_RULES, TRAIN_RULES, AxisRules, all_gather, all_reduce,
-                       local_shape, logical_to_mesh_axes, shard_leaf, shard_pytree,
-                       shard_view)
+                       copy_to, cut_axes, gather_leaf, gather_shard, local_shape,
+                       logical_to_mesh_axes, shard_leaf, shard_pytree, shard_view)
 
 __all__ = ["AXIS_ORDER", "MeshSpec", "build_mesh", "mesh_backend", "axis_size",
            "axis_index", "AxisRules", "TRAIN_RULES", "INFER_RULES", "logical_to_mesh_axes",
-           "shard_pytree", "shard_leaf", "shard_view", "local_shape", "all_reduce", "all_gather"]
+           "shard_pytree", "shard_leaf", "shard_view", "local_shape", "cut_axes", "all_reduce",
+           "all_gather", "copy_to", "gather_shard", "gather_leaf"]

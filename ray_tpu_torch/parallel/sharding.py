@@ -7,11 +7,29 @@ strategy is the table, not the model. ``shard_pytree`` gives each rank its
 LOCAL shard as a plain tensor (the slice along every dim whose logical axis
 maps to mesh axes of more than one rank), where JAX device_puts a global
 array: the hand kernels take plain tensors, and the model code calls the
-collectives itself (``all_reduce`` after a contraction over a sharded axis,
-``all_gather`` to join a sharded output). An int8 ``QTensor`` shards with its
+collectives itself where GSPMD would insert them. An int8 ``QTensor`` shards with its
 weight: q like the float leaf, its scales likewise except along the
 contraction axis they keep as 1 (replicated where that axis is sharded, as
 XLA leaves them: ray_tpu/ops/quant.py:24-31).
+
+The collectives are differentiable, Megatron's f/g pair and an fsdp
+gather, each over one mesh axis's group:
+
+- ``all_reduce``: the sum forward, the identity backward (g: after a
+  row-parallel product, whose downstream every rank of the axis computes
+  alike);
+- ``copy_to``: the identity forward, the sum of the gradients backward (f:
+  at the input of a column-parallel product);
+- ``all_gather``: the ranks' pieces joined forward, this rank's slice of
+  the gradient backward (the downstream is replicated over the axis);
+- ``gather_shard``: a parameter's fsdp shards joined forward, the gradient
+  summed over the axis and sliced backward (a reduce-scatter: each rank's
+  downstream saw its own slice of the batch). Gloo has no reduce-scatter of
+  one tensor, so it is an all-reduce and a slice, the same values.
+
+Without autograd (``torch.no_grad()``, or an input that does not require
+grad) each is the plain call, ``all_reduce`` in place: serving keeps its
+bits.
 
 ``with_sharding_constraint``, ``manual_axes``, ``vary_like`` and the
 shard_map helpers serve sequence and pipeline parallelism (ROADMAP A6).
@@ -156,21 +174,146 @@ def shard_pytree(tree, axes_tree, mesh, rules: AxisRules):
     return shard_leaf(tree, axes_tree, mesh, rules)
 
 
-def all_reduce(x: torch.Tensor, mesh, axis: str = "tp") -> torch.Tensor:
-    """Sum x over the ranks of a mesh axis, in place (the identity for one
-    rank or no mesh)."""
-    if axis_size(mesh, axis) > 1:
-        dist.all_reduce(x, group=mesh.get_group(axis))
+def cut_axes(axes, mesh, rules: AxisRules) -> Tuple[str, ...]:
+    """The mesh axes of more than one rank that cut a leaf with logical
+    `axes`, in the order of its dims."""
+    out = []
+    for mesh_axes in rules.spec(axes):
+        names = (mesh_axes,) if isinstance(mesh_axes, str) else tuple(mesh_axes or ())
+        out += [a for a in names if axis_size(mesh, a) > 1 and a not in out]
+    return tuple(out)
+
+
+def _grad_wanted(x) -> bool:
+    return torch.is_grad_enabled() and isinstance(x, torch.Tensor) and x.requires_grad
+
+
+def _gather_cat(x: torch.Tensor, group, n: int, dim: int) -> torch.Tensor:
+    x = x.contiguous()
+    parts = [torch.empty_like(x) for _ in range(n)]
+    dist.all_gather(parts, x, group=group)
+    return torch.cat(parts, dim=dim)
+
+
+def _summed(x: torch.Tensor, group) -> torch.Tensor:
+    out = x.contiguous().clone()
+    dist.all_reduce(out, group=group)
+    return out
+
+
+class _SumForward(torch.autograd.Function):
+    """g: the sum over a group forward, the identity backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return _summed(x, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+class _SumBackward(torch.autograd.Function):
+    """f: the identity forward, the gradients summed over a group backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _summed(grad, ctx.group), None
+
+
+class _GatherSlice(torch.autograd.Function):
+    """The group's pieces joined along `dim` forward; backward, this rank's
+    slice of the gradient (`summed`: of the gradient summed over the group
+    first, a reduce-scatter)."""
+
+    @staticmethod
+    def forward(ctx, x, group, n, index, dim, summed):
+        ctx.group, ctx.index, ctx.dim, ctx.summed = group, index, dim, summed
+        ctx.size = x.shape[dim]
+        return _gather_cat(x, group, n, dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        if ctx.summed:
+            grad = _summed(grad, ctx.group)
+        grad = grad.narrow(ctx.dim, ctx.index * ctx.size, ctx.size).contiguous()
+        return grad, None, None, None, None, None
+
+
+def all_reduce(x: torch.Tensor, mesh, axis: str = "tp", op: str = "sum") -> torch.Tensor:
+    """Sum (or, op="max", the maximum of) x over the ranks of a mesh axis:
+    the identity for one rank or no mesh. Without autograd it runs in place;
+    under autograd the sum is g (the identity backward), and the maximum
+    takes no gradient."""
+    if axis_size(mesh, axis) == 1:
+        return x
+    group = mesh.get_group(axis)
+    if op == "max":
+        if _grad_wanted(x) or not x.is_contiguous():
+            raise ValueError("all_reduce(op='max') runs in place, without a gradient: pass "
+                             "a detached contiguous tensor")
+        dist.all_reduce(x, op=dist.ReduceOp.MAX, group=group)
+        return x
+    if op != "sum":
+        raise ValueError(f"op {op!r} (expected sum | max)")
+    if _grad_wanted(x):
+        return _SumForward.apply(x, group)
+    if not x.is_contiguous():  # gloo would reduce the storage, not the view
+        raise ValueError("all_reduce in place needs a contiguous tensor")
+    dist.all_reduce(x, group=group)
     return x
+
+
+def copy_to(x: torch.Tensor, mesh, axis: str = "tp") -> torch.Tensor:
+    """f: x itself forward; under autograd its gradient is summed over the
+    ranks of a mesh axis (the input of a column-parallel product)."""
+    if axis_size(mesh, axis) == 1 or not _grad_wanted(x):
+        return x
+    return _SumBackward.apply(x, mesh.get_group(axis))
 
 
 def all_gather(x: torch.Tensor, mesh, axis: str = "tp", dim: int = -1) -> torch.Tensor:
     """The ranks' x joined along `dim`, in rank order along the mesh axis
-    (x itself for one rank or no mesh)."""
+    (x itself for one rank or no mesh). Under autograd the backward keeps
+    this rank's slice of the gradient."""
     n = axis_size(mesh, axis)
     if n == 1:
         return x
-    x = x.contiguous()
-    parts = [torch.empty_like(x) for _ in range(n)]
-    dist.all_gather(parts, x, group=mesh.get_group(axis))
-    return torch.cat(parts, dim=dim)
+    group = mesh.get_group(axis)
+    if _grad_wanted(x):
+        return _GatherSlice.apply(x, group, n, axis_index(mesh, axis), dim % x.dim(), False)
+    return _gather_cat(x, group, n, dim)
+
+
+def gather_shard(x: torch.Tensor, mesh, axis: str, dim: int) -> torch.Tensor:
+    """A parameter's shards over a mesh axis joined along `dim` (x itself
+    for one rank). Under autograd the backward sums the gradient over the
+    axis's ranks and keeps this rank's slice: a reduce-scatter."""
+    n = axis_size(mesh, axis)
+    if n == 1:
+        return x
+    group = mesh.get_group(axis)
+    if _grad_wanted(x):
+        return _GatherSlice.apply(x, group, n, axis_index(mesh, axis), dim % x.dim(), True)
+    return _gather_cat(x, group, n, dim)
+
+
+def gather_leaf(x: torch.Tensor, axes, mesh, rules: AxisRules,
+                axis: str = "fsdp") -> torch.Tensor:
+    """One leaf joined along every dim whose logical axis `rules` maps to the
+    mesh axis `axis` alone (gather_shard): a layer's weights gathered over
+    fsdp where they are used. x itself when no such dim is cut."""
+    if axis_size(mesh, axis) == 1:
+        return x
+    for dim, mesh_axes in enumerate(rules.spec(axes)):
+        if mesh_axes == axis:
+            x = gather_shard(x, mesh, axis, dim)
+        elif not isinstance(mesh_axes, str) and axis in (mesh_axes or ()):
+            raise NotImplementedError(f"a parameter dim over mesh axes {mesh_axes}: "
+                                      "ROADMAP A6")
+    return x

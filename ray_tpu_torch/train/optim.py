@@ -14,7 +14,11 @@ reproduces them step for step:
   applies to every leaf (norms and embeddings included);
 - clipping leaves the gradients unchanged when their global norm is below
   the limit, else scales them by limit / norm, with no epsilon (unlike
-  ``torch.nn.utils.clip_grad_norm_``);
+  ``torch.nn.utils.clip_grad_norm_``). On a device mesh the leaves are
+  each rank's shards, and ``global_norm(mesh=, cuts=)`` sums each leaf's
+  squares over exactly the mesh axes that cut it, so a leaf replicated over
+  an axis counts once (what ``optax.global_norm`` of the global arrays
+  gives); AdamW is elementwise and runs on the shards unchanged;
 - ``mu_dtype`` stores the first moment in that dtype. The update computes
   in f32 and uses the new moment before it is cast back; as in optax's
   jitted update, a bf16 moment is decayed by b1 rounded to bf16 (0.8984375
@@ -36,10 +40,12 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable, List, NamedTuple, Optional, Tuple
+from typing import Callable, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from ray_tpu_torch.parallel.sharding import all_reduce
 
 Schedule = Callable[[int], float]
 
@@ -69,10 +75,28 @@ def warmup_cosine_decay_schedule(init_value: float, peak_value: float,
     return schedule
 
 
-def global_norm(tensors: List[torch.Tensor]) -> torch.Tensor:
-    """sqrt of the sum of squares of every element, as a 0-d f32 tensor."""
+def global_norm(tensors: List[torch.Tensor], mesh=None,
+                cuts: Optional[Sequence[Tuple[str, ...]]] = None) -> torch.Tensor:
+    """sqrt of the sum of squares of every element, as a 0-d f32 tensor.
+
+    On a `mesh`, tensors[i] is this rank's shard of a leaf that the mesh
+    axes cuts[i] cut (parallel.cut_axes): the squares of the leaves cut by
+    the same axes are summed here, then over those axes, and a leaf
+    replicated over an axis is not summed over it. Every rank gets the same
+    norm."""
     norms = torch._foreach_norm(tensors)
-    return torch.linalg.vector_norm(torch.stack(norms).float())
+    if mesh is None:
+        return torch.linalg.vector_norm(torch.stack(norms).float())
+    by_cut = {}
+    for n, cut in zip(norms, cuts):
+        by_cut.setdefault(tuple(cut), []).append(n)
+    total = torch.zeros((), dtype=torch.float32, device=norms[0].device)
+    for cut in sorted(by_cut):
+        sq = torch.stack(by_cut[cut]).float().square().sum()
+        for axis in cut:
+            sq = all_reduce(sq, mesh, axis)
+        total = total + sq
+    return total.sqrt()
 
 
 @torch.no_grad()
@@ -183,10 +207,12 @@ class Optimizer:
         return adamw_init(params, self.mu_dtype)
 
     def update_(self, grads: List[torch.Tensor], state: AdamWState,
-                params: List[torch.Tensor]) -> Tuple[AdamWState, torch.Tensor]:
+                params: List[torch.Tensor],
+                norm: Optional[torch.Tensor] = None) -> Tuple[AdamWState, torch.Tensor]:
         """One update in place (grads are clipped in place too). Returns the
-        new state and the global norm of the unclipped grads."""
-        norm = clip_by_global_norm_(grads, self.grad_clip)
+        new state and the global norm of the unclipped grads (`norm` when
+        the caller computed it: on a mesh, global_norm across the shards)."""
+        norm = clip_by_global_norm_(grads, self.grad_clip, norm)
         state = adamw_update_(grads, state, params, learning_rate=self.learning_rate,
                               b1=self.b1, b2=self.b2, eps=self.eps,
                               weight_decay=self.weight_decay)

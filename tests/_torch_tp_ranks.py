@@ -1,12 +1,14 @@
-"""Port ranks for the tensor-parallel parity tests: N spawned CPU processes
-joined in a gloo mesh of tp = N, each running the jobs the test process
-sends it and sending back what it got. The jobs import the port only (no
+"""Port ranks for the mesh parity tests: N spawned CPU processes joined in a
+gloo mesh (tp = N unless a MeshSpec is given), each running the jobs the
+test process sends it and sending back what it got. A job may lay another
+mesh over the same N ranks (``mesh_of``). The jobs import the port only (no
 JAX): a rank is a fresh interpreter, and JAX stays in the test process.
 
 Every wait is bounded: a job that does not answer within the timeout, or a
 rank that dies, fails the test that sent it; ``close`` joins each rank with
 a timeout and kills what is left.
 """
+import copy
 import multiprocessing
 import queue
 import socket
@@ -20,15 +22,19 @@ from ray_tpu_torch.llm import model_runner, paged
 from ray_tpu_torch.models import bridge, checkpoint, llama
 from ray_tpu_torch.models.config import get_config
 from ray_tpu_torch.ops.quant import quantize_llama_params
-from ray_tpu_torch.parallel import INFER_RULES, MeshSpec, build_mesh, shard_leaf
+from ray_tpu_torch.parallel import (INFER_RULES, TRAIN_RULES, MeshSpec, build_mesh,
+                                    shard_leaf, shard_pytree, shard_view)
+from ray_tpu_torch.parallel import sharding
+from ray_tpu_torch.train import optim
+from ray_tpu_torch.train import step as train_step
 
 TIMEOUT_S = 60.0  # the groups' own bound (parallel.mesh.GROUP_TIMEOUT_S)
 
 
-def _rank_main(rank, n, init_method, inbox, outbox):
+def _rank_main(rank, n, spec, init_method, inbox, outbox):
     torch.set_num_threads(1)
     try:
-        mesh = build_mesh(MeshSpec(tp=n), ["cpu"] * n, rank=rank, init_method=init_method)
+        mesh = build_mesh(spec, ["cpu"] * n, rank=rank, init_method=init_method)
         while True:
             job = inbox.get()
             if job is None:
@@ -44,9 +50,10 @@ def _rank_main(rank, n, init_method, inbox, outbox):
 
 
 class Ranks:
-    """N port ranks (spawned once); ``run(fn, *args)`` -> each rank's result."""
+    """N port ranks (spawned once) on a mesh of `spec` (MeshSpec(tp=n) by
+    default); ``run(fn, *args)`` -> each rank's result."""
 
-    def __init__(self, n=2):
+    def __init__(self, n=2, spec=None):
         with socket.socket() as s:
             s.bind(("127.0.0.1", 0))
             port = s.getsockname()[1]
@@ -54,8 +61,8 @@ class Ranks:
         self.outbox = ctx.Queue()
         self.inboxes = [ctx.Queue() for _ in range(n)]
         self.procs = [ctx.Process(target=_rank_main, daemon=True,
-                                  args=(r, n, f"tcp://127.0.0.1:{port}", self.inboxes[r],
-                                        self.outbox))
+                                  args=(r, n, spec or MeshSpec(tp=n),
+                                        f"tcp://127.0.0.1:{port}", self.inboxes[r], self.outbox))
                       for r in range(n)]
         for p in self.procs:
             p.start()
@@ -179,3 +186,133 @@ def embed_rows(mesh, table, ids):
 def world(mesh):
     """(rank, tp size, the group's backend) as this rank sees them."""
     return dist.get_rank(), mesh.size(mesh.mesh_dim_names.index("tp")), dist.get_backend()
+
+
+# -- jobs of the training-mesh tests (tests/test_torch_port_train_mesh.py) --------------
+
+_MESHES = {}
+
+
+def mesh_of(spec):
+    """A mesh of `spec` over the pool's ranks (built once per spec: every
+    rank runs the same job, so the groups it makes line up)."""
+    if spec not in _MESHES:
+        _MESHES[spec] = build_mesh(spec, ["cpu"] * dist.get_world_size())
+    return _MESHES[spec]
+
+
+def coordinate(mesh):
+    """This rank's index along every mesh axis (AXIS_ORDER)."""
+    return tuple(mesh.get_coordinate())
+
+
+def _leaves_requiring_grad(params):
+    for p in llama.tree_leaves(params):
+        p.requires_grad_(True)
+    return params
+
+
+def train_steps(_, spec, np_params, cfg_kw, batch, opt_kw, n_steps):
+    """make_train_step(mesh=) on the rank's TRAIN_RULES shards of the
+    bridged params, n_steps on the global `batch` -> (coordinate, metrics of
+    each step as f32 host floats, the shards after each step, AdamW's state
+    after the last, the loss_mask tokens of the rank's own rows)."""
+    mesh = mesh_of(spec)
+    cfg = get_config(**cfg_kw)
+    tx = train_step.make_optimizer(**opt_kw)
+    params = _leaves_requiring_grad(bridge.params_from_jax(np_params, cfg, device="cpu",
+                                                           mesh=mesh, rules=TRAIN_RULES))
+    state = train_step.TrainState(0, params, tx.init(llama.tree_leaves(params)))
+    step = train_step.make_train_step(cfg, tx, device="cpu", mesh=mesh)
+    batch = {k: torch.from_numpy(v).long() for k, v in batch.items()}
+    metrics, shards = [], []
+    for _ in range(n_steps):
+        state, m = step(state, batch)
+        metrics.append({k: v.item() for k, v in m.items()})
+        shards.append(copy.deepcopy(bridge.params_to_numpy(state.params)))  # views: the
+        # next step updates the tensors in place
+    own = shard_view(batch["loss_mask"][:, 1:], ("batch", None), mesh, TRAIN_RULES)
+    return dict(coord=coordinate(mesh), metrics=metrics, params=shards,
+                opt=bridge.opt_state_to_numpy(state.opt_state, state.params),
+                own_tokens=int(own.sum()))
+
+
+def init_shards(_, spec, cfg_name, src):
+    """init_state(mesh=) from the seed and from the checkpoint at `src`, with
+    the shards of the whole init and of the whole load by TRAIN_RULES ->
+    {name: (got params, want params)}, and the moments' shapes against the
+    shards'."""
+    mesh = mesh_of(spec)
+    cfg = get_config(cfg_name)
+    tx = train_step.make_optimizer()
+    axes = llama.param_axes(cfg)
+
+    def shard(p):
+        return bridge.params_to_numpy(shard_pytree(p, axes, mesh, TRAIN_RULES))
+
+    seeded = train_step.init_state(cfg, tx, seed=4, device="cpu", mesh=mesh)
+    loaded = train_step.init_state(cfg, tx, device="cpu", mesh=mesh, checkpoint_dir=src)
+    whole_load = checkpoint.load_llama_params(src, cfg, device="cpu", dtype=torch.float32)
+    out = {
+        "init": (bridge.params_to_numpy(llama.init(cfg, seed=4, device="cpu", mesh=mesh,
+                                                   rules=TRAIN_RULES)),
+                 shard(llama.init(cfg, seed=4, device="cpu"))),
+        "init_state": (bridge.params_to_numpy(seeded.params),
+                       shard(llama.init(cfg, seed=4, device="cpu"))),
+        "load": (bridge.params_to_numpy(checkpoint.load_llama_params(
+            src, cfg, device="cpu", dtype=torch.float32, mesh=mesh, rules=TRAIN_RULES)),
+                 shard(whole_load)),
+        "init_state_checkpoint": (bridge.params_to_numpy(loaded.params), shard(whole_load)),
+    }
+    moments = [(tuple(m.shape), tuple(n.shape), tuple(p.shape), float(m.abs().sum()),
+                float(n.abs().sum()))
+               for m, n, p in zip(seeded.opt_state.mu, seeded.opt_state.nu,
+                                  llama.tree_leaves(seeded.params))]
+    return out, moments
+
+
+def refusal(_, what):
+    """The NotImplementedError a training mesh raises for `what` (moe, sync,
+    sp, pp), or None when nothing raises."""
+    spec = {"sp": MeshSpec(sp=2, tp=2), "pp": MeshSpec(pp=2, dp=2)}.get(what,
+                                                                        MeshSpec(fsdp=2, tp=2))
+    mesh = mesh_of(spec)
+    cfg = get_config("moe-tiny" if what == "moe" else "test-tiny")
+    tx = train_step.make_optimizer()
+    sync = object() if what == "sync" else None
+    got = []
+    for call in (lambda: train_step.init_state(cfg, tx, device="cpu", mesh=mesh, sync=sync),
+                 lambda: train_step.make_train_step(cfg, tx, device="cpu", mesh=mesh,
+                                                    sync=sync)):
+        try:
+            call()
+            got.append(None)
+        except NotImplementedError as e:
+            got.append(str(e))
+    return got
+
+
+def collective_grads(_, spec, axis, name, x):
+    """One differentiable collective over `axis` on rank-distinct inputs
+    (x + the rank's index along the axis), then a loss that weighs each
+    output element by (rank's index along the axis + 1) -> (coordinate,
+    the output, the input's gradient)."""
+    mesh = mesh_of(spec)
+    i = mesh.get_local_rank(axis)
+    inp = (torch.from_numpy(x) + i).requires_grad_(True)
+    fn = {"all_reduce": lambda t: sharding.all_reduce(t, mesh, axis),
+          "copy_to": lambda t: sharding.copy_to(t, mesh, axis),
+          "all_gather": lambda t: sharding.all_gather(t, mesh, axis, dim=1),
+          "gather_shard": lambda t: sharding.gather_shard(t, mesh, axis, dim=1)}[name]
+    out = fn(inp)
+    (grad,) = torch.autograd.grad((out * (i + 1)).sum(), inp)
+    return coordinate(mesh), out.detach().numpy(), grad.numpy()
+
+
+def global_norm_of(_, spec, leaves, leaf_axes):
+    """optim.global_norm over this rank's TRAIN_RULES shards of `leaves`."""
+    mesh = mesh_of(spec)
+    shards = [shard_leaf(torch.from_numpy(x), ax, mesh, TRAIN_RULES)
+              for x, ax in zip(leaves, leaf_axes)]
+    cuts = [sharding.cut_axes(ax, mesh, TRAIN_RULES) for ax in leaf_axes]
+    return optim.global_norm(shards, mesh, cuts).item()

@@ -229,13 +229,16 @@ def test_train_step_refuses_a_state_on_another_device(monkeypatch):
     ("mesh", NotImplementedError, "A6"),
     ("sync", NotImplementedError, "A8")])
 def test_training_options_outside_the_slice_raise(tmp_path, kwarg, error, match):
-    """A mesh and the grad-sync modes raise naming their ROADMAP item; a
-    checkpoint_dir that does not exist raises FileNotFoundError, as the JAX
-    package's reader does."""
+    """What training does not run yet raises naming its ROADMAP item: a
+    mixture-of-experts model on a mesh (ep, A6: refused from the config,
+    before the mesh is read; tests/test_torch_port_train_mesh.py drives the
+    dense model on gloo meshes and the sp / pp refusals) and the grad-sync
+    modes (A8); a checkpoint_dir that does not exist raises
+    FileNotFoundError, as the JAX package's reader does."""
     from ray_tpu_torch import train
     from ray_tpu_torch.models import config
 
-    tiny = config.get_config("test-tiny")
+    tiny = config.get_config("moe-tiny" if kwarg == "mesh" else "test-tiny")
     tx = train.make_optimizer()
     value = str(tmp_path / "no-such-checkpoint") if kwarg == "checkpoint_dir" else "x"
     with pytest.raises(error, match=match):
