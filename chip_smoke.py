@@ -39,7 +39,7 @@ Phases, each fatal on failure (the script exits non-zero and prints no result):
      tensor_parallel_size=2 as two ranks sharing cuda:0 over gloo (NCCL
      refuses two ranks on one device), and over NCCL on cuda:0,1 too where
      the machine has two cards (the line says which ran). Phase 3's three
-     solo prompts (their tails that leave room for 16 tokens), each in a
+     solo prompts (their tails that leave room for 8 tokens), each in a
      slot of its own, on tp 1 (phase 3's weights: prefill, then 16 greedy
      decode steps of the three slots) and on two spawned ranks, each holding
      its shard of the same seeded init (llama.init with the mesh),
@@ -53,13 +53,33 @@ Phases, each fatal on failure (the script exits non-zero and prints no result):
      requests, then the three solo prompts: TTFT per bucket, decode
      tokens/s), paged (bench_serve's settings, prefix cache off; the three
      concurrent requests) and int8 (the three, then the shortest solo
-     prompt), 16 tokens each, each finishing with "length", rank 0's B1a
+     prompt), 8 tokens each, each finishing with "length", rank 0's B1a
      count zeroed just before and read just after (n_layers per prefill),
      and the served greedy ids equal to tp 1's (int8: tp 1 on the same
      weights quantized) up to tp 1's first near tie (a top-2 gap under 2e-2
      of max|logits|), and where they part tp 2's token within 4e-2 of
      max|logits| of tp 1's top. Every number of T is two ranks on one
      card, not a TP speed;
+ DP. data parallelism (A2f, dp half) on the same card, after T: dp 1's
+     greedy ids on phase 3's weights (four of phase 3's prompts, 121 to 501
+     tokens, each in a slot of its own, 16 decode steps), then
+     TorchLLMEngine(LLMConfig(model_source="llama3-8b",
+     data_parallel_size=2, max_num_seqs=8, max_model_len=1024)) as two
+     replicas of the whole model sharing cuda:0 over gloo (and over NCCL on
+     cuda:0,1 too where there are two cards), in the slot layout, paged
+     (bench_serve's blocks and buckets, prefix cache on, fused bursts at the
+     default width) and paged with n-gram speculation (k = 4): the four
+     prompts at once, then a repeat of the first alone, 16 tokens each,
+     every rank's counts zeroed just before and read just after. Gates:
+     every request ends with "length" after its 16 tokens; the served ids
+     equal dp 1's up to its first near tie (as T's gate); each rank
+     launched B1a n_layers times per whole prefill it computed (one at
+     least) and decoded with an active slot; the repeat ran on one replica
+     only (slot: B1a n_layers times on its rank, 0 on the other's; paged: a
+     prefix hit in that replica's cache, no launch). Recorded: engine start
+     s, TTFT per prompt, decode tokens/s of the requests, of all replicas
+     and of each rank, peak GiB per rank, the phase's wall time; two
+     replicas on one card, not a DP speed;
   5. paged serving: llama3-8b on the same weights with kv_layout="paged" and
      bench_serve.py's engine settings (32 slots, 1024 positions, 32-token
      blocks, buckets 32..1024): decode_step_paged against decode_step on the
@@ -84,8 +104,8 @@ Phases, each fatal on failure (the script exits non-zero and prints no result):
      single-window; device, fused m = 4) on three repetitive prompts P + C
      + P, C the plain engine's own greedy continuation of P (each run must
      draft; acceptance and tok/s beside the plain engine); bench_spec_modes
-     at batch 1 and 8 (the paged layout at 8 only) of 96 tokens in f32, as
-     there (one f32 copy of the
+     at batch 1 and 8 (the paged layout at 8 only) of SPEC_GEN tokens (48;
+     bench_serve's 96, cut to keep the run's time) in f32, as there (one f32 copy of the
      weights): the plain engine, fused-only m = 8, and the oracle (the
      plain engine's greedy continuation as drafts, through _propose_ngram
      and spec_multi's propose_fn seam) single-window and fused m = 4;
@@ -300,6 +320,7 @@ PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 SOLO_REPEATS = 3  # solo requests per TTFT bucket
 SOLO_CHARS = (120, 500, 1000)  # solo prompts of phase 3 (and A): buckets 128, 512, 1024
+SOLO_GEN = 32  # greedy tokens per solo request of phases 3, 6 (int8) and A
 TRAIN_SHAPE = dict(b=6, s=2048, h=32, hkv=8, d=128)  # llama8b-geom2's attention at B6 S2048
 TRAIN_STEPS = 8  # timed steps after one warm-up step
 # bench_serve.py's engine settings for the paged phase
@@ -310,9 +331,9 @@ PAGED = dict(kv_layout="paged", max_num_seqs=32, max_model_len=1024, kv_block_si
 # a suffix) and in their bf16 roundings, through 32 layers
 PAGED_TOL = 2e-2
 SPEC_K = 4  # bench_serve.py's drafts per window (bench_spec_modes)
-SPEC_GEN = 96  # tokens per oracle request (bench_spec_modes' gen_tokens)
+SPEC_GEN = 48  # tokens per oracle request (bench_spec_modes' gen_tokens is 96)
 SPEC_BATCHES = (1, 8)  # concurrent oracle requests (bench_serve.py:1600)
-NGRAM_GEN = 64  # tokens per n-gram request
+NGRAM_GEN = 48  # tokens per n-gram request
 NGRAM_SEEDS = (1, 2, 3)  # one n-gram request per seed, served together
 
 
@@ -696,12 +717,12 @@ def main_path(torch, fa, card):
             ids = eng.tokenizer.encode(prompt(n_chars))
             t = time.perf_counter()
             stamps, got = [], []
-            for out in eng.generate(ids, SamplingParams(max_tokens=64, temperature=0.0,
+            for out in eng.generate(ids, SamplingParams(max_tokens=SOLO_GEN, temperature=0.0,
                                                         stop_token_ids=[-1])):
                 stamps.append(time.perf_counter())
                 got += out.token_ids
             n_tokens = len(got)
-            if n_tokens != 64 or out.finish_reason != "length":
+            if n_tokens != SOLO_GEN or out.finish_reason != "length":
                 raise SystemExit(f"solo request ended with {n_tokens} tokens "
                                  f"({out.finish_reason})")
             ttft_ms = (stamps[0] - t) * 1e3
@@ -1581,8 +1602,8 @@ def quant_path(torch, fa, card, params, served):
 
     fa.reset_launch_count()
     prefills0 = eng.num_prefills
-    solo = [solo_request(eng, eng.tokenizer.encode(prompt_text(n)), 64)
-            for n in (120, 500, 1000)]
+    solo = [solo_request(eng, eng.tokenizer.encode(prompt_text(n)), SOLO_GEN)
+            for n in SOLO_CHARS]
     torch.cuda.synchronize()
     launches, prefills = fa.launch_count(), eng.num_prefills - prefills0
     bf16 = {}
@@ -2591,14 +2612,14 @@ def checkpoint_serve_path(torch, fa, card, params, served):
         # ---- served from the directory: counts zeroed just before, read just after ----
         for n_chars in SOLO_CHARS:
             out = eng.generate_sync(eng.tokenizer.encode(prompt_text(n_chars)), SamplingParams(
-                max_tokens=64, temperature=0.0, stop_token_ids=[-1]))
+                max_tokens=SOLO_GEN, temperature=0.0, stop_token_ids=[-1]))
             ids[n_chars] = out.token_ids
         torch.cuda.synchronize()
         launches, prefills = fa.launch_count(), eng.num_prefills - prefills0
         # ---- end ----
         repeats_agree = all(r["token_ids"] == want[r["n_chars"]] for r in served["solo"])
         same_ids = all(ids[n] == want[n] for n in SOLO_CHARS)
-        print(f"  3 greedy prompts of {list(SOLO_CHARS)} chars x 64 tokens: ids identical to "
+        print(f"  3 greedy prompts of {list(SOLO_CHARS)} chars x {SOLO_GEN} tokens: ids identical to "
               f"phase 3's: {same_ids} (phase 3's {SOLO_REPEATS} repeats agree: "
               f"{repeats_agree}); flash launches {launches} over {prefills} prefills, n_layers "
               f"{cfg.n_layers}", flush=True)
@@ -4656,14 +4677,15 @@ def tp1_greedy(torch, params, prompts, dev):
     return ref_first, ref_steps, fed
 
 
-def tp_ids_gate(name, runs, first, steps, fed):
-    """The served tp 2 greedy ids against tp 1's (prefill logits `first`,
-    decode logits `steps`, ids `fed`). They must be equal up to tp 1's first
-    near tie, a top-2 logit gap under TP_TOL of max|logits|. Where they
-    part, the context is still the same, so the token tp 2 took must fall
-    short of tp 1's top by under 2 TP_TOL of max|logits|, what two sets of
-    logits each within TP_TOL of the other allow. Prints where they part,
-    tp 1's top-2 gap there and the taken token's shortfall."""
+def tp_ids_gate(name, runs, first, steps, fed, side="tp 2", base="tp 1", phase="T"):
+    """The served `side` (tp 2) greedy ids against `base`'s (tp 1: prefill
+    logits `first`, decode logits `steps`, ids `fed`). They must be equal up
+    to the base's first near tie, a top-2 logit gap under TP_TOL of
+    max|logits|. Where they part, the context is still the same, so the
+    token the side took must fall short of the base's top by under 2 TP_TOL
+    of max|logits|, what two sets of logits each within TP_TOL of the other
+    allow. Prints where they part, the base's top-2 gap there and the taken
+    token's shortfall."""
     every = np.concatenate([first[None], steps])  # [TP_FED + 1, P, V]
     scale = np.abs(every).max(axis=-1)
     top2 = np.sort(every, axis=-1)[..., -2:]
@@ -4681,15 +4703,15 @@ def tp_ids_gate(name, runs, first, steps, fed):
                         shortfall=float(lg.max() - lg[got[lead]]) / float(scale[lead, i]))
         gates.append(gate)
         parted = ("none part" if gate["parted_at"] is None else
-                  f"they part at token {lead}: tp 1's top-2 gap {gate['gap']:.3e} of "
-                  f"max|logits|, tp 2's token {gate['shortfall']:.3e} short of tp 1's top "
-                  f"(tol {2 * TP_TOL})")
-        print(f"  {name} tp 2 greedy ids ({r['prompt_tokens']} tokens): {got[:12]}..., the "
-              f"first {lead} of {len(want)} as tp 1's, whose first near tie (gap < {TP_TOL}) "
-              f"is at token {tie}; {parted}", flush=True)
+                  f"they part at token {lead}: {base}'s top-2 gap {gate['gap']:.3e} of "
+                  f"max|logits|, {side}'s token {gate['shortfall']:.3e} short of {base}'s "
+                  f"top (tol {2 * TP_TOL})")
+        print(f"  {name} {side} greedy ids ({r['prompt_tokens']} tokens): {got[:12]}..., the "
+              f"first {lead} of {len(want)} as {base}'s, whose first near tie (gap < "
+              f"{TP_TOL}) is at token {tie}; {parted}", flush=True)
         if gate["parted_at"] is not None and (lead < tie or gate["shortfall"] >= 2 * TP_TOL):
-            raise SystemExit(f"phase T {name}: the served ids part from tp 1's where tp 1 has "
-                             f"no near tie: {gate}")
+            raise SystemExit(f"phase {phase} {name}: the served ids part from {base}'s where "
+                             f"{base} has no near tie: {gate}")
     return gates
 
 
@@ -4854,6 +4876,211 @@ def tp_path(torch, fa, card, params):
     return out
 
 
+# phase DP: data parallelism on one card (A2f, dp half). llama3-8b at dp 2 on
+# phase 3's seed: two replicas of the whole model share cuda:0 over gloo (and
+# NCCL on cuda:0 and cuda:1 runs too where the machine has two cards), each
+# with 4 of 8 slots and, paged, half the pool and a prefix cache of its own.
+# The numbers are those of 2 replicas sharing one H100, not a DP speed.
+DP = 2
+DP_GEN = 16  # tokens per served request (<= TP_FED + 1: the ids gate's depth)
+# four of phase 3's prompts (121, 201, 301, 501 tokens). They share their
+# leading text, so a later one hits the prefix cache of its replica; the
+# 1001-token one would then fail with "length" in both packages (its cached
+# blocks plus its suffix's bucket pass the 32-block table)
+DP_CHARS = (120, 200, 300, 500)
+DP_ENGINE = dict(model_source="llama3-8b", data_parallel_size=DP, max_num_seqs=8,
+                 max_model_len=1024)
+DP_PAGED = dict(kv_layout="paged", kv_block_size=32,
+                prefill_buckets=[32, 64, 128, 256, 512, 1024])  # bench_serve's, 8 slots
+DP_LABEL = {"gloo": "2 replicas sharing one H100 over gloo", "nccl": "2 H100s over NCCL"}
+
+
+def dp_logits_check(eng, name, prompts, fed, ref_steps):
+    """Teacher-forced logits at dp 2 on the engine's own ranks, after its
+    requests: each prompt prefilled into a slot of its own replica (the
+    replicas take turns), then TP_FED decode steps of those slots fed dp 1's
+    greedy ids (ShardRunner.decode_logits: SlotOps.decode_step or
+    paged.decode_step_paged_dp, the replicas' rows gathered over "dp").
+    Every step's logits of every prompt must be within TP_TOL of dp 1's
+    (`ref_steps`, tp1_greedy) in max|d| / max|ref|."""
+    c = eng.config
+    n_slots, per = c.max_num_seqs, c.max_num_seqs // DP
+    slots = [i // DP + per * (i % DP) for i in range(len(prompts))]
+    greedy = (0.0, 1.0, 0)
+    t0 = time.perf_counter()
+    for prompt, slot in zip(prompts, slots):
+        if c.kv_layout == "paged":
+            bucket = next(b for b in c.buckets() if b >= len(prompt))
+            ids = eng._blocks.allocate(slot, eng._blocks.blocks_needed(
+                max(bucket, len(prompt) + TP_FED + 1)))
+            eng._run("prefill_paged", prompt, slot, ids, greedy)
+        else:
+            eng._run("prefill", prompt, slot, greedy)
+    last = np.zeros((n_slots,), np.int64)
+    active = np.zeros((n_slots,), bool)
+    active[slots] = True
+    errs = [0.0] * len(prompts)
+    for t in range(TP_FED):
+        last[slots] = [ids[t] for ids in fed]
+        logits = eng._run("decode_logits", last, active).float().cpu().numpy()
+        for i, slot in enumerate(slots):
+            ref = ref_steps[t, i]
+            errs[i] = max(errs[i], float(np.abs(logits[slot] - ref).max() / np.abs(ref).max()))
+    if c.kv_layout == "paged":
+        for slot in slots:
+            eng._blocks.release(slot)
+    print(f"    {name}: teacher-forced dp 2 vs dp 1 bf16 logits over {TP_FED} fed decode "
+          f"steps, max|d|/max|ref| per prompt {[f'{e:.3e}' for e in errs]} (tol {TP_TOL}); "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    if max(errs) > TP_TOL:
+        raise SystemExit(f"phase DP {name}: dp 2's logits disagree with dp 1's: {errs}")
+    return errs
+
+
+def dp_serve(torch, card, devices, prompts, name, check=None, **kw):
+    """TorchLLMEngine(LLMConfig(llama3-8b, data_parallel_size=2, **kw)) on
+    `devices`: the prompts at once (the replicas take turns at admission, so
+    both decode), then a repeat of the first alone, each DP_GEN greedy
+    tokens; every rank's counts zeroed just before each part and read just
+    after. Gates: every request ends with "length" after DP_GEN tokens; in the concurrent part
+    each rank launched B1a n_layers times per whole prefill it computed and
+    computed one at least, and decoded with an active slot; in the repeat the
+    owner replica alone computed (slot layout: one whole prefill there, B1a
+    n_layers times on its rank and 0 on the other's; paged: a prefix hit in
+    that replica's cache, no whole prefill, B1a 0 times anywhere). With
+    `check` (dp 1's fed ids and decode logits), dp_logits_check after."""
+    from ray_tpu_torch.llm import LLMConfig, SamplingParams, TorchLLMEngine
+
+    greedy = SamplingParams(max_tokens=DP_GEN, temperature=0.0, stop_token_ids=[-1])
+    held = torch.cuda.memory_allocated()  # phase 3's weights, in rank 0's process
+    t0 = time.perf_counter()
+    eng = TorchLLMEngine(LLMConfig(**DP_ENGINE, **kw), devices=devices)
+    eng.start()
+    torch.cuda.synchronize()
+    start_s = time.perf_counter() - t0
+    n_layers = eng.model_config.n_layers
+    backend = "gloo" if len(set(devices)) == 1 else "nccl"
+
+    def timed(ids, t):
+        stamps, got = [], []
+        for out in eng.generate(ids, greedy):
+            stamps.append(time.perf_counter())
+            got += out.token_ids
+        return dict(prompt_tokens=out.num_prompt_tokens, finish_reason=out.finish_reason,
+                    ttft_ms=(stamps[0] - t) * 1e3, token_ids=got,
+                    decode_tok_s=((len(stamps) - 1) / (stamps[-1] - stamps[0])
+                                  if len(got) > 1 else 0.0))
+
+    try:
+        eng.rank_counts(reset=True)
+        # ---- the data-parallel path: counts zeroed just before, read just after ----
+        t_all = time.perf_counter()
+        runs, wall = run_together(lambda i: timed(prompts[i], t_all), len(prompts), timeout=300)
+        together = eng.rank_counts(reset=True)
+        # ---- end ----
+        subs = getattr(eng._blocks, "subs", None)
+        hits0 = [sub.hit_tokens for sub in subs] if subs else None
+        # ---- the repeat: counts zeroed just before, read just after ----
+        repeat = timed(prompts[0], time.perf_counter())
+        again = eng.rank_counts()
+        # ---- end ----
+        hits = [sub.hit_tokens - h for sub, h in zip(subs, hits0)] if subs else None
+        metrics = eng.metrics()
+        errs = dp_logits_check(eng, name, prompts, *check) if check else None
+    finally:
+        eng.shutdown()
+        del eng
+        torch.cuda.empty_cache()
+    tokens = sum(len(r["token_ids"]) for r in runs)
+    for r in together:  # rank 0's peak without what its process held before
+        r["peak_gib"] = (r.pop("peak_bytes") - (held if r["rank"] == 0 else 0)) / 2**30
+        r["decode_tok_s"] = r["tokens"] / wall
+    label = f"[{DP_LABEL[backend]}; {card}]"
+    print(f"  {name}: up in {start_s:.1f} s; " + "; ".join(
+        f"{r['prompt_tokens']} tokens TTFT {r['ttft_ms']:.1f} ms, decode "
+        f"{r['decode_tok_s']:.2f} tok/s" for r in runs)
+        + f"; together {tokens} tokens in {wall:.2f} s = {tokens / wall:.2f} tok/s {label}",
+        flush=True)
+    for r in together:
+        print(f"    rank {r['rank']} (replica {r['replica']}): {r['prefills']} whole prefills, "
+              f"{r['prefix_prefills']} over a cached prefix, B1a launches "
+              f"{r['flash_launches']}, {r['active_steps']} decode steps with an active slot, "
+              f"{r['tokens']} tokens = {r['decode_tok_s']:.2f} tok/s over the part's wall, "
+              f"peak {r['peak_gib']:.2f} GiB beyond what the process held before {label}",
+              flush=True)
+    owner = [r for r in again if r["prefills"] + r["prefix_prefills"]]
+    print(f"    repeat of the {repeat['prompt_tokens']}-token prompt alone: TTFT "
+          f"{repeat['ttft_ms']:.1f} ms; ranks that computed it "
+          f"{[(r['rank'], r['prefills'], r['prefix_prefills']) for r in owner]}, B1a launches "
+          f"by rank {[r['flash_launches'] for r in again]}, prefix hit tokens by replica "
+          f"{hits}", flush=True)
+    reasons = [(r["finish_reason"], len(r["token_ids"])) for r in runs + [repeat]]
+    fails = []
+    if any(x != ("length", DP_GEN) for x in reasons):
+        fails.append(f"(reason, tokens) {reasons}")
+    for r in together:
+        if not r["prefills"] or r["flash_launches"] != n_layers * r["prefills"]:
+            fails.append(f"rank {r['rank']}: B1a {r['flash_launches']} for {r['prefills']} "
+                         "whole prefills")
+        if not r["active_steps"]:
+            fails.append(f"rank {r['rank']} decoded no step with an active slot")
+    if len(owner) != 1:
+        fails.append(f"the repeat ran on {len(owner)} ranks")
+    elif subs is None:
+        if owner[0]["prefills"] != 1 or [r["flash_launches"] for r in again] != [
+                n_layers if r is owner[0] else 0 for r in again]:
+            fails.append(f"the repeat's prefill: {again}")
+    elif owner[0]["prefix_prefills"] != 1 or any(r["flash_launches"] for r in again) or \
+            not hits[owner[0]["replica"]] or sum(hits) != hits[owner[0]["replica"]]:
+        fails.append(f"the repeat missed its replica's prefix cache: hits {hits}, {again}")
+    if fails:
+        raise SystemExit(f"phase DP {name}: " + "; ".join(fails))
+    return dict(config=kw, devices=[str(d) for d in devices], backend=backend,
+                start_s=start_s, runs=runs, wall_s=wall, tokens=tokens,
+                decode_tok_s=tokens / wall, ranks=together, repeat=repeat, repeat_ranks=again,
+                repeat_hits=hits, metrics=metrics, logits_errs=errs,
+                launches=[r["flash_launches"] for r in together],
+                launches_repeat=[r["flash_launches"] for r in again])
+
+
+def dp_path(torch, fa, card, params):
+    """Phase DP: dp 1's greedy ids on phase 3's weights (tp1_greedy, each prompt in
+    a slot of its own), then TorchLLMEngine at data_parallel_size 2 on two ranks
+    sharing cuda:0 over gloo: the slot layout, paged (prefix cache on, fused
+    bursts at the default width) and paged with n-gram speculation (k = 4), each
+    serving the four prompts at once and a repeat (dp_serve); every served
+    request's ids equal dp 1's up to dp 1's first near tie (tp_ids_gate), and
+    the slot and paged engines' teacher-forced logits are within TP_TOL of dp
+    1's at every fed step (dp_logits_check). Where there are two cards, the slot
+    engine runs over NCCL on cuda:0 and cuda:1 too."""
+    from ray_tpu_torch.llm.tokenizer import get_tokenizer
+
+    t_phase = time.perf_counter()
+    tok = get_tokenizer("byte")
+    prompts = [tok.encode(prompt_text(n))[-(1024 - DP_GEN):] for n in DP_CHARS]
+    first, steps, fed = tp1_greedy(torch, params, prompts, torch.device("cuda:0"))
+    shared = ["cuda:0"] * DP
+    check = (fed, steps)
+    out = {"slot": dp_serve(torch, card, shared, prompts, "slot", check),
+           "paged": dp_serve(torch, card, shared, prompts, "paged", check, **DP_PAGED),
+           "spec": dp_serve(torch, card, shared, prompts, "paged, n-gram k 4", **DP_PAGED,
+                            num_speculative_tokens=SPEC_K)}
+    if torch.cuda.device_count() >= DP:
+        out["slot_nccl"] = dp_serve(torch, card, [f"cuda:{r}" for r in range(DP)], prompts,
+                                    "slot over NCCL")
+    else:
+        print(f"  NCCL across cards: not run ({torch.cuda.device_count()} card)", flush=True)
+    # the repeat is prompt 0 again: its column of dp 1's logits once more
+    first, steps, fed = (np.concatenate([first, first[:1]]),
+                         np.concatenate([steps, steps[:, :1]], axis=1), fed + [fed[0]])
+    for name, run in out.items():
+        run["ids_gate"] = tp_ids_gate(name, run["runs"] + [run["repeat"]], first, steps, fed,
+                                      side="dp 2", base="dp 1", phase="DP")
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(f"  phase DP took {out['wall_s']:.1f} s", flush=True)
+    return out
+
+
 def ptxas_report(_build):
     """Print each kernel's registers and spills from its library's build log
     (nvcc -Xptxas -v); return {kernel: (spill store bytes, spill load bytes)}."""
@@ -4968,6 +5195,10 @@ def main() -> int:
           "weights, and served")
     tp_served = tp_path(torch, fa, card, params)
 
+    header(t_start, "[DP] data parallelism: llama3-8b at dp 2 on one card, served in the slot and "
+           "paged layouts and with speculation, against dp 1 on phase 3's weights")
+    dp_served = dp_path(torch, fa, card, params)
+
     header(t_start, "[5] paged serving: llama3-8b with bench_serve's paged settings")
     paged_served = paged_path(torch, fa, card, params)
 
@@ -5065,6 +5296,11 @@ def main() -> int:
     kernels[0]["launches_tp"] = {  # per rank per prefill at H16/KV4; rank 0 while served
         "per_rank_per_prefill": tp_served["logits"]["gloo"]["ranks"][0]["launches"],
         **{name: tp_served[name]["launches"] for name in ("slot", "paged", "int8")}}
+    kernels[0]["launches_dp"] = {  # by rank: the four prompts together, then the repeat alone
+        name: {"together": run["launches"],
+               "whole_prefills": [r["prefills"] for r in run["ranks"]],
+               "repeat": run["launches_repeat"]}
+        for name, run in dp_served.items() if name != "wall_s"}
     kernels[0]["design"] = (
         "bf16: a producer warpgroup keeps a 3-stage TMA ring of 128-row K/V tiles "
         "(mbarrier full/empty); two consumer warpgroups of 64 q rows run S = QK^T and "
@@ -5089,6 +5325,7 @@ def main() -> int:
                   build_s=build_s, sass=sass, checks=checks, backward_checks=bwd_checks,
                   timings=timings, training_timings=train_timings, sdpa_backward=sdpa_bwd,
                   served=served, numerics=numerics, tensor_parallel=tp_served,
+                  data_parallel=dp_served,
                   paged=paged_served,
                   int8=quant_served, spec=spec_served, pd=pd_served,
                   trained=trained_runs, train_numerics=train_check,

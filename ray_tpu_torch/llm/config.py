@@ -7,7 +7,9 @@ with whole-prompt or chunked prefill, n-gram speculative
 decoding and int8 weights (W8A16), for dense and mixture-of-experts models
 (``engine_kwargs`` overrides the model config, e.g. its
 ``moe_capacity_factor``), from a registry name, a ModelConfig or a local
-HF-layout checkpoint directory (models/checkpoint.py). The rest raises NotImplementedError naming
+HF-layout checkpoint directory (models/checkpoint.py), from one or, with
+``data_parallel_size`` = N, N replicas, each with its own slots and KV (a MoE
+model at tensor_parallel_size 1 only). The rest raises NotImplementedError naming
 its ROADMAP item at construction. The JAX engine's checks of the paged,
 chunked, speculative and quantization settings (ray_tpu/llm/engine.py:283-307)
 run here, at construction, before any weight is built, with the same errors.
@@ -111,6 +113,8 @@ class LLMConfig:
     # ranks that shard heads, MLP and vocabulary (a dense model); the engine
     # is rank 0 and starts the others (llm/tp_worker.py)
     tensor_parallel_size: int = 1
+    # replicas, each of tensor_parallel_size ranks, each with max_num_seqs / N
+    # slots and (paged) its own num_kv_blocks / N blocks and prefix cache
     data_parallel_size: int = 1
     expert_parallel_size: int = 1
     pipeline_parallel_size: int = 1
@@ -137,12 +141,20 @@ class LLMConfig:
                 "'ngram' (prompt lookup) is implemented")
         if self.quantization and self.quantization != "int8":
             raise ValueError(f"unknown quantization {self.quantization!r} (supported: int8)")
-        for name, item in (("data_parallel_size", "A2f, A6"), ("expert_parallel_size", "A6"),
-                           ("pipeline_parallel_size", "A6")):
+        for name, item in (("expert_parallel_size", "A6"), ("pipeline_parallel_size", "A2g")):
             if getattr(self, name) != 1:
                 raise NotImplementedError(f"{name} > 1: ROADMAP {item}")
         if self.tensor_parallel_size > 1:
             self._check_tensor_parallel()
+        dp = self.data_parallel_size
+        if dp < 1:
+            raise ValueError("data_parallel_size must be >= 1")
+        # the JAX engine's words (ray_tpu/llm/engine.py:270-281)
+        if self.max_num_seqs % dp:
+            raise ValueError("max_num_seqs must be divisible by data_parallel_size")
+        if self.kv_layout == "paged" and self.kv_pool_blocks() % dp:
+            raise ValueError(f"num_kv_blocks ({self.kv_pool_blocks()}) must divide by "
+                             f"data_parallel_size ({dp})")
         if self.kv_layout == "paged":
             if self.max_model_len % self.kv_block_size:
                 raise ValueError("max_model_len must be a multiple of kv_block_size")

@@ -1,5 +1,5 @@
 """LLMEngine ABC + TorchLLMEngine: continuous batching on one CUDA device or
-a tensor-parallel mesh (port of ray_tpu/llm/engine.py, slot and paged layouts).
+a mesh of data- and tensor-parallel ranks (port of ray_tpu/llm/engine.py, slot and paged layouts).
 
 A scheduler thread (1) admits waiting requests into free cache slots with a
 whole-prompt prefill padded to a bucket, or a chunked one, (2) advances every
@@ -38,18 +38,29 @@ device-plane handoff (``kv_handle`` results, paged streaming) is ROADMAP A10.
 the request spans are ROADMAP A11, as is pipeline parallelism's A6.
 
 Every device call goes through ``_run(op, *args)`` on the engine's
-``tp_worker.ShardRunner``, with host arguments. With tensor_parallel_size =
-N > 1 the engine is rank 0 of an N-rank mesh over ``devices`` (cuda:0..N-1
-by default; gloo when ranks share a card or run on the CPU): ``start()``
-spawns N - 1 followers, ``_run`` announces each call to them first, and
-``shutdown()`` stops, joins and, past a timeout, kills them. A follower's
-death or exception, or any failed call under tp, finishes the in-flight
-requests with "error" (within the group timeout), fails every later one,
-and makes ``health_error()`` say why. P/D under tp > 1 is ROADMAP A6.
+``tp_worker.ShardRunner``, with host arguments. With data_parallel_size ×
+tensor_parallel_size = N > 1 the engine is rank 0 of an N-rank mesh over
+``devices`` (cuda:0..N-1 by default; gloo when ranks share a card or run on
+the CPU): ``start()`` spawns N - 1 followers, ``_run`` announces each call to
+them first, and ``shutdown()`` stops, joins and, past a timeout, kills them.
+A follower's death or exception, or any failed call on the mesh, finishes
+the in-flight requests with "error" (within the group timeout), fails every
+later one, and makes ``health_error()`` say why. P/D under tp > 1 is ROADMAP
+A6.
+
+Data parallelism (data_parallel_size = D > 1): D replicas, each with
+max_num_seqs / D slots of the one scheduler; with kv_layout="paged" each
+has a pool of num_kv_blocks / D blocks and a prefix cache of its own (the
+block manager's ``_ShardedBlockManager``). The engine calls only the block
+manager's slot-scoped forms where pool locality matters, so dp needs no
+branch here beyond admission, which takes the replica with the most free
+blocks first, and preemption, which picks its victim in the growing slot's
+pool.
 """
 from __future__ import annotations
 
 import abc
+import collections
 import dataclasses
 import itertools
 import logging
@@ -65,6 +76,7 @@ import torch
 from ray_tpu_torch.device import resolve_device
 
 from . import paged
+from .model_runner import slot_replica
 from . import config as llm_config
 from .config import (ENGINE_IDLE_WAIT_S, FUSED_STEPS_MAX, FUSED_SYNC_TARGET,
                      LLMConfig, SamplingParams)
@@ -137,21 +149,23 @@ class TorchLLMEngine(LLMEngine):
     int8 ``QTensor`` leaves in `params` (an engine's quantized weights, or a
     bridged int8 tree) are moved to the device as they are.
     `device` defaults to CUDA and raises when there is none; pass "cpu" for
-    the plain path. Under tensor_parallel_size = N > 1, `devices` names
-    rank r's device for each of the N ranks (this process is rank 0); it
-    defaults to N CPU ranks when `device` is "cpu", else to cuda:0..N-1."""
+    the plain path. With N = data_parallel_size × tensor_parallel_size > 1,
+    `devices` names rank r's device for each of the N ranks (this process is
+    rank 0; rank r is replica r // tensor_parallel_size); it defaults to N
+    CPU ranks when `device` is "cpu", else to cuda:0..N-1."""
 
     def __init__(self, config: LLMConfig, params=None, device=None, devices=None):
         self.config = config
         self.model_config = config.resolve_model_config()
         self.tokenizer = get_tokenizer(config.resolve_tokenizer_name())
-        tp = config.tensor_parallel_size
-        if devices is None and tp > 1:
+        tp, dp = config.tensor_parallel_size, config.data_parallel_size
+        if devices is None and tp * dp > 1:
             cpu = device is not None and torch.device(device).type == "cpu"
-            devices = ["cpu"] * tp if cpu else [f"cuda:{r}" for r in range(tp)]
+            devices = ["cpu"] * (tp * dp) if cpu else [f"cuda:{r}" for r in range(tp * dp)]
         if devices is not None:
-            if len(devices) != tp:
-                raise ValueError(f"{len(devices)} devices for tensor_parallel_size {tp}")
+            if len(devices) != tp * dp:
+                raise ValueError(f"{len(devices)} devices for tensor_parallel_size {tp} × "
+                                 f"data_parallel_size {dp}")
             devices = [resolve_device(d) for d in devices]
             device = devices[0]
         self.device = resolve_device(device)
@@ -203,7 +217,7 @@ class TorchLLMEngine(LLMEngine):
         when config.quantization says so (thread-safe, idempotent); a
         checkpoint directory's load and the seeded init quantize piece by
         piece as they go. The KV state and the scheduler loop start on first
-        use; under tensor parallelism the followers start here, and the KV
+        use; with more than one rank the followers start here, and the KV
         state and the loop with them (P/D, which needs neither, is not
         served under tp)."""
         with self._start_lock:
@@ -217,7 +231,7 @@ class TorchLLMEngine(LLMEngine):
                 # before any checkpoint byte is read (ray_tpu/llm/engine.py:303)
                 raise ValueError(f"unknown quantization {c.quantization!r} (supported: int8)")
             mesh = None
-            if c.tensor_parallel_size > 1:
+            if c.data_parallel_size * c.tensor_parallel_size > 1:
                 if self.device.type == "cuda":
                     from ray_tpu_torch.ops import _build
 
@@ -237,6 +251,8 @@ class TorchLLMEngine(LLMEngine):
             self._top_p = np.ones((n,), np.float32)
             self._top_k = np.zeros((n,), np.int64)
             self._last_tokens = np.zeros((n,), np.int64)
+            self._slots_per = n // c.data_parallel_size
+            self._replica_tokens = [0] * c.data_parallel_size  # tokens emitted, by replica
             self._started = True
         if self._followers is not None:
             self._ensure_decode_started()
@@ -270,6 +286,27 @@ class TorchLLMEngine(LLMEngine):
                 self._followers.kill()
                 raise
 
+    def _run_local(self, op: str, *args):
+        """A call on rank 0's ShardRunner alone, not announced: one that no
+        other rank takes part in (P/D's prefill, which is refused under tp)."""
+        with self._run_lock:
+            return getattr(self._runner, op)(*args)
+
+    def rank_counts(self, reset: bool = False) -> List[Dict[str, Any]]:
+        """Each rank's counts (tp_worker.ShardRunner.rank_counts: its replica
+        and tp index, the prefills it computed, the decode steps in which its
+        replica had an active slot, B1a's launches in its process, its peak
+        device memory) and the tokens its replica's requests were given
+        since the last reset; `reset` zeroes them after."""
+        self.start()
+        out = self._run("rank_counts")
+        for rank in out:
+            rank["tokens"] = self._replica_tokens[rank["replica"]]
+        if reset:
+            self._run("reset_counts")
+            self._replica_tokens = [0] * len(self._replica_tokens)
+        return out
+
     def health_error(self) -> Optional[str]:
         """Why the engine cannot serve (its tensor-parallel group failed or
         a follower is gone), or None."""
@@ -294,6 +331,7 @@ class TorchLLMEngine(LLMEngine):
                     self._blocks = paged.make_block_manager(
                         c.kv_pool_blocks(), c.kv_block_size,
                         c.max_model_len // c.kv_block_size, c.max_num_seqs,
+                        dp=c.data_parallel_size,
                         enable_prefix_caching=c.enable_prefix_caching)
                 self._run("init_state")
             self._measure_host_rt()
@@ -437,8 +475,8 @@ class TorchLLMEngine(LLMEngine):
         self._refuse_pd_under_tp()
         self.start()
         prompt_ids = self._encode_prompt(prompt, params)
-        k, v, last_logits = self._run("prefill_kv", prompt_ids)
-        tok = int(self._run("sample_one", last_logits, *_sampling(params))[0])
+        k, v, last_logits = self._run_local("prefill_kv", prompt_ids)
+        tok = int(self._run_local("sample_one", last_logits, *_sampling(params))[0])
         with self._lock:
             self.num_prefills += 1
         out: Dict[str, Any] = {"prompt_ids": prompt_ids, "first_token": tok}
@@ -577,7 +615,10 @@ class TorchLLMEngine(LLMEngine):
         slot, or whole into a slot. A paged request the pool cannot take yet
         goes back to the queue, and admission stops for this cycle."""
         c = self.config
-        for slot in [s for s, r in self._active.items() if r is None]:
+        while True:
+            slot = self._next_free_slot()
+            if slot is None:
+                return
             try:
                 req = self._waiting.get_nowait()
             except queue.Empty:
@@ -626,6 +667,24 @@ class TorchLLMEngine(LLMEngine):
             self._admitting = None
             self._emit(req, tok)
 
+    def _next_free_slot(self) -> Optional[int]:
+        """The free slot the next admission takes, or None. Under dp > 1 it
+        is in the replica with the most free blocks (paged, as
+        ray_tpu/llm/engine.py:1041-1048 ranks them, so one full pool does not
+        block admission to the others) or free slots (slot layout); ties keep
+        slot order. The rank is taken anew for each admission, where the JAX
+        engine ranks once per cycle, so requests that arrive together spread
+        over the replicas instead of filling the first."""
+        free = [s for s, r in self._active.items() if r is None]
+        c = self.config
+        if c.data_parallel_size == 1 or not free:
+            return free[0] if free else None
+        if c.kv_layout == "paged":
+            return max(free, key=self._blocks.num_free_for)  # the first of equals
+        per = self._slots_per
+        idle = collections.Counter(slot_replica(s, per)[0] for s in free)
+        return max(free, key=lambda s: idle[slot_replica(s, per)[0]])
+
     def _install_transfer(self, req: _Request, slot: int) -> Optional[int]:
         """Install a P/D transfer's KV (ray_tpu/llm/engine.py:1115-1142) and
         return the first token the prefill side sampled, or None when the
@@ -640,7 +699,7 @@ class TorchLLMEngine(LLMEngine):
             if needed > self._blocks.max_fit(slot):
                 self._fail_request(req, "length")  # can never fit
                 return None
-            if not self._blocks.can_allocate(needed):
+            if not self._blocks.can_allocate_for(slot, needed):
                 self._waiting.put(req)  # prefill_kv intact; retried next cycle
                 return None
             self._run("install_transfer", slot, k, v, n, self._blocks.allocate(slot, needed))
@@ -702,7 +761,7 @@ class TorchLLMEngine(LLMEngine):
         if needed > self._blocks.max_fit(slot):
             self._fail_request(req, "length")  # can never fit
             return None
-        if not self._blocks.can_allocate(needed):
+        if not self._blocks.can_allocate_for(slot, needed):
             self._waiting.put(req)  # stays pending; retried next cycle
             return None
         tok = self._run("prefill_paged", prompt, slot, self._blocks.allocate(slot, needed),
@@ -710,7 +769,7 @@ class TorchLLMEngine(LLMEngine):
         # publish the prompt's full blocks for later prefix hits, unless no
         # hit of this size could pay (a longer prompt shares <= max_hit tokens)
         if max_hit >= min_hit:
-            self._blocks.register_blocks(slot, prompt, self._blocks.owned[slot],
+            self._blocks.register_blocks(slot, prompt, self._blocks.owned_for(slot),
                                          skip_blocks=0)
         return int(tok[0])
 
@@ -742,7 +801,7 @@ class TorchLLMEngine(LLMEngine):
             self._blocks.release(slot)  # undo the attached prefix refs
             self._fail_request(req, "length")
             return None
-        if not self._blocks.can_allocate(needed_new):
+        if not self._blocks.can_allocate_for(slot, needed_new):
             self._blocks.release(slot)
             self._waiting.put(req)
             return None
@@ -751,7 +810,7 @@ class TorchLLMEngine(LLMEngine):
                         _sampling(req.params))
         self._blocks.register_blocks(slot, prompt, cached_ids + new_ids,
                                      skip_blocks=len(cached_ids))
-        self._blocks.hit_tokens += cached_tokens  # counted only on success
+        self._blocks.add_hit_tokens(slot, cached_tokens)  # counted only on success
         return int(tok[0])
 
     def _grow_or_preempt(self, headroom: int = 1, steps=None) -> None:
@@ -776,12 +835,15 @@ class TorchLLMEngine(LLMEngine):
             target = min(next_write + slot_headroom, self.config.max_model_len)
             while (self._active[slot] is req
                    and target - 1 >= self._blocks.slot_capacity(slot)):
-                if self._blocks.num_free > 0:
+                if self._blocks.num_free_for(slot) > 0:
                     (bid,) = self._blocks.allocate(slot, 1)
                     index = self._blocks.slot_capacity(slot) // bs - 1
                     self._run("append_block", slot, index, bid)
                     continue
-                victim = max((r for r in self._active.values() if r is not None),
+                # the youngest request of this slot's pool: another
+                # replica's blocks would not help it
+                victim = max((r for r in self._active.values()
+                              if r is not None and self._blocks.same_pool(r.slot, slot)),
                              key=lambda r: r.admitted_at)
                 self._preempt(victim)
                 if victim is req:
@@ -802,6 +864,7 @@ class TorchLLMEngine(LLMEngine):
         req.token_history.append(tok)
         with self._lock:
             self.total_generated += 1
+            self._replica_tokens[slot_replica(req.slot, self._slots_per)[0]] += 1
         stops = req.params.stop_token_ids or [self.tokenizer.eos_token_id]
         finished, reason = False, None
         if tok in stops:

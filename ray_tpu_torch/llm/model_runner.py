@@ -16,6 +16,14 @@ straight into its slot, and each decode step writes one position per slot.
 The returned state is the same object. Random draws come from a
 ``torch.Generator``; greedy rows match the JAX package token for token.
 
+Data parallelism (``data_parallel_size`` = N, a mesh whose "dp" axis holds
+N replicas): each rank's cache holds its replica's max_num_seqs / N slots.
+A batched call (``SlotOps`` here, ``paged.PagedOps``) runs the dp 1 function
+on the replica's rows of the per-slot inputs and all-gathers its per-slot
+outputs over "dp" (``over_replicas``), so every rank holds what the dp 1
+call returns for all slots; a call for one slot runs on its replica only
+(llm/tp_worker.py). No collective runs inside the model for dp.
+
 Tensor parallelism: every function takes an optional ``mesh``. Under tp > 1
 each rank calls it with its shard of the weights (``shard_params``, by
 INFER_RULES) and a cache of its kv heads (``init_state(mesh=)``, the JAX
@@ -25,7 +33,8 @@ across ranks.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+import math
+from typing import Callable, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -33,8 +42,8 @@ from ray_tpu_torch.device import resolve_device
 from ray_tpu_torch.models import llama
 from ray_tpu_torch.models.config import ModelConfig
 from ray_tpu_torch.ops.quant import as_weight
-from ray_tpu_torch.parallel.mesh import axis_size
-from ray_tpu_torch.parallel.sharding import INFER_RULES, all_reduce, shard_pytree
+from ray_tpu_torch.parallel.mesh import axis_index, axis_size
+from ray_tpu_torch.parallel.sharding import INFER_RULES, all_gather, all_reduce, shard_pytree
 
 from . import sampling
 
@@ -49,15 +58,19 @@ class DecodeState(NamedTuple):
 
 def init_state(cfg: ModelConfig, slots: int, max_len: int, device=None,
                dtype: Optional[torch.dtype] = None, mesh=None) -> DecodeState:
-    """A zeroed slot cache; under tp > 1 it holds this rank's kv heads."""
+    """A zeroed slot cache; under tp > 1 it holds this rank's kv heads, under
+    dp > 1 this replica's slots/dp slots (the JAX package's CACHE_SPEC)."""
     dev = resolve_device(device)
-    shape = (cfg.n_layers, slots, max_len, cfg.n_kv_heads // axis_size(mesh, "tp"),
+    dp = axis_size(mesh, "dp")
+    if slots % dp:
+        raise ValueError("max_num_seqs must be divisible by data_parallel_size")
+    shape = (cfg.n_layers, slots // dp, max_len, cfg.n_kv_heads // axis_size(mesh, "tp"),
              cfg.head_dim)
     dtype = dtype or cfg.activation_dtype
     return DecodeState(
         k=torch.zeros(shape, dtype=dtype, device=dev),
         v=torch.zeros(shape, dtype=dtype, device=dev),
-        lengths=torch.zeros((slots,), dtype=torch.int64, device=dev),
+        lengths=torch.zeros((slots // dp,), dtype=torch.int64, device=dev),
     )
 
 
@@ -486,3 +499,120 @@ def spec_multi(
         lambda window, draft_len: spec_verify_step(
             params, state, window, draft_len, active, cfg, temperature, top_p, top_k,
             generator, mesh=mesh)[1:]))
+
+
+# ------------------------------------------------------------ data parallelism
+
+def slot_replica(slot: int, slots_per: int) -> Tuple[int, int]:
+    """(replica, local slot) of a global slot under data parallelism:
+    replica r owns slots r * slots_per ... (r + 1) * slots_per - 1 (the JAX
+    package's P("dp") cut of the slot axis). The one rule that the block
+    manager, the engine, the ShardRunner and the _dp functions share."""
+    return divmod(int(slot), slots_per)
+
+
+def replica_slots(replica: int, slots_per: int) -> slice:
+    """The global slots `replica` owns (slot_replica's inverse)."""
+    return slice(replica * slots_per, (replica + 1) * slots_per)
+
+
+def replica_rows(mesh, *xs: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """This data-parallel replica's rows of each per-slot [S, ...] tensor."""
+    rows = replica_slots(axis_index(mesh, "dp"), xs[0].shape[0] // axis_size(mesh, "dp"))
+    return tuple(x[rows] for x in xs)
+
+
+def gather_replicas(mesh, outs: Sequence[torch.Tensor], dims: Sequence[int]) -> List[torch.Tensor]:
+    """Per-slot outputs of every replica joined in replica order along each
+    one's slot dim (`dims`), in ONE all-gather over "dp" (the outputs share
+    a dtype and ride packed side by side)."""
+    flat = [o.movedim(d, 0) for o, d in zip(outs, dims)]
+    packed = torch.cat([f.reshape(f.shape[0], -1) for f in flat], dim=1)
+    whole = all_gather(packed, mesh, "dp", dim=0)
+    got, at = [], 0
+    for f, d in zip(flat, dims):
+        width = math.prod(f.shape[1:])
+        got.append(whole[:, at:at + width].reshape(-1, *f.shape[1:]).movedim(0, d))
+        at += width
+    return got
+
+
+def over_replicas(mesh, fn: Callable, per_slot: Sequence[torch.Tensor], dims: Sequence[int],
+                  idle: Optional[Callable] = None) -> List[torch.Tensor]:
+    """A batched call under data parallelism: fn(*rows) on this replica's rows
+    of each per-slot input (per_slot[1] is the active mask) -> its per-slot
+    outputs, gathered over the replicas (gather_replicas), so every rank
+    holds the [.., S] outputs of the dp 1 call. With `idle`, a replica with
+    no active row runs idle(*rows) instead of the model (its tokens
+    unchanged, as where(active, next, tokens) keeps them) and still joins
+    the gather. At dp 1, fn on the inputs themselves."""
+    if axis_size(mesh, "dp") == 1:
+        return list(fn(*per_slot))
+    rows = replica_rows(mesh, *per_slot)
+    outs = idle(*rows) if idle is not None and not bool(rows[1].any()) else fn(*rows)
+    return gather_replicas(mesh, outs, dims)
+
+
+def _idle_burst(n_steps: int):
+    return lambda tokens, *_: (tokens.long()[None].expand(n_steps, -1),)
+
+
+def _idle_verify(window, draft_len, *_):
+    return window.long(), torch.zeros_like(draft_len)
+
+
+def _idle_multi(m: int, k: int):
+    def idle(hist, hlen):
+        rows = torch.arange(hist.shape[0], device=hist.device)
+        last = hist[rows, (hlen - 1).clamp_min(0)].long()
+        zeros = torch.zeros((m, hist.shape[0]), dtype=torch.long, device=hist.device)
+        return last[None, :, None].expand(m, -1, k + 1), zeros, zeros
+
+    return idle
+
+
+class SlotOps:
+    """Engine-facing batched calls of the slot layout for one cache (the
+    paged layout's are paged.PagedOps): the functions above on this rank's
+    shard, and under dp > 1 on this replica's slots, their per-slot outputs
+    gathered over "dp" (over_replicas)."""
+
+    def __init__(self, cfg: ModelConfig, mesh=None):
+        self.cfg = cfg
+        self.mesh = mesh
+
+    def decode_step(self, params, state, tokens, active):
+        """-> (state, logits [S, vocab]), every replica's rows."""
+        (logits,) = over_replicas(
+            self.mesh, lambda t, a: (decode_step(params, state, t, a, self.cfg, self.mesh)[1],),
+            (tokens, active), (0,))
+        return state, logits
+
+    def decode_multi(self, params, state, tokens, active, n_steps, temperature, top_p,
+                     top_k, steps_left, generator=None):
+        (toks,) = over_replicas(
+            self.mesh, lambda t, a, tt, p, k, sl: decode_multi(
+                params, state, t, a, self.cfg, n_steps, tt, p, k, sl, generator,
+                self.mesh)[1:],
+            (tokens, active, temperature, top_p, top_k, steps_left), (1,),
+            _idle_burst(n_steps))
+        return state, toks
+
+    def spec_verify(self, params, state, window, draft_len, active, temperature, top_p,
+                    top_k, generator=None):
+        toks, n_acc = over_replicas(
+            self.mesh, lambda w, a, d, tt, p, k: spec_verify_step(
+                params, state, w, d, a, self.cfg, tt, p, k, generator, mesh=self.mesh)[1:],
+            (window, active, draft_len, temperature, top_p, top_k), (0, 0),
+            lambda w, a, d, *_: _idle_verify(w, d))
+        return state, toks, n_acc
+
+    def spec_multi(self, params, state, hist, hlen, active, temperature, top_p, top_k, m,
+                   k, nmax, generator=None):
+        out = over_replicas(
+            self.mesh, lambda h, a, hl, tt, p, kk: spec_multi(
+                params, state, h, hl, a, self.cfg, tt, p, kk, m, k, nmax,
+                generator=generator, mesh=self.mesh)[1:],
+            (hist, active, hlen, temperature, top_p, top_k), (1, 1, 1),
+            lambda h, a, hl, *_: _idle_multi(m, k)(h, hl))
+        return (state, *out)

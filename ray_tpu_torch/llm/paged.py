@@ -21,8 +21,11 @@ package, which has no Pallas kernel for them. Speculative verify shares the
 slot layout's window layer body through the same adapter. Under tensor
 parallelism the pool holds this rank's kv heads (the JAX package's
 POOL_SPEC over "tp") and every device function takes the ``mesh``, as the
-slot layout's do; the block manager stays on the host of rank 0. The
-data-parallel and pipelined variants are later slices (ROADMAP A2f, A6).
+slot layout's do; the block manager stays on the host of rank 0. Under
+data parallelism each replica has a pool of its own, and the host side
+_ShardedBlockManager one block manager and prefix cache per replica (see
+the dp section below). The pipelined variants are a later slice (ROADMAP
+A2g).
 """
 from __future__ import annotations
 
@@ -35,10 +38,11 @@ import torch
 from ray_tpu_torch.device import resolve_device
 from ray_tpu_torch.models import llama
 from ray_tpu_torch.models.config import ModelConfig
-from ray_tpu_torch.parallel.mesh import axis_size
+from ray_tpu_torch.parallel.mesh import axis_index, axis_size
 
-from .model_runner import (_burst, _decode_layers, _window_positions, prompt_mask,
-                           propose_ngram_device, spec_driver, spec_multi_impl)
+from .model_runner import (_burst, _decode_layers, _idle_burst, _idle_multi, _idle_verify,
+                           _window_positions, over_replicas, prompt_mask,
+                           propose_ngram_device, slot_replica, spec_driver, spec_multi_impl)
 
 
 class PagedState(NamedTuple):
@@ -61,17 +65,25 @@ def init_paged_state(cfg: ModelConfig, slots: int, max_len: int, num_blocks: int
                      block_size: int, device=None,
                      dtype: Optional[torch.dtype] = None, mesh=None) -> PagedState:
     """A pool of num_blocks blocks plus one scratch block (its last index);
-    under tp > 1 of this rank's kv heads."""
+    under tp > 1 of this rank's kv heads. Under dp > 1 `num_blocks` and
+    `slots` are the totals over the replicas: this rank holds its replica's
+    partition, num_blocks/dp blocks plus a scratch block of its own, and the
+    tables and lengths of its slots/dp slots (the JAX package's
+    POOL_SPEC_DP, TABLE_SPEC_DP and LENGTHS_SPEC_DP)."""
     dev = resolve_device(device)
     dtype = dtype or cfg.activation_dtype
-    shape = (cfg.n_layers, num_blocks + 1, block_size, cfg.n_kv_heads // axis_size(mesh, "tp"),
-             cfg.head_dim)
+    dp = axis_size(mesh, "dp")
+    if num_blocks % dp or slots % dp:
+        raise ValueError(f"num_blocks ({num_blocks}) and slots ({slots}) must divide by "
+                         f"data_parallel_size ({dp})")
+    shape = (cfg.n_layers, num_blocks // dp + 1, block_size,
+             cfg.n_kv_heads // axis_size(mesh, "tp"), cfg.head_dim)
     return PagedState(
         k=torch.zeros(shape, dtype=dtype, device=dev),
         v=torch.zeros(shape, dtype=dtype, device=dev),
-        block_tables=torch.zeros((slots, max_len // block_size), dtype=torch.int64,
+        block_tables=torch.zeros((slots // dp, max_len // block_size), dtype=torch.int64,
                                  device=dev),
-        lengths=torch.zeros((slots,), dtype=torch.int64, device=dev),
+        lengths=torch.zeros((slots // dp,), dtype=torch.int64, device=dev),
     )
 
 
@@ -207,16 +219,125 @@ class _BlockManager:
     def slot_capacity(self, slot: int) -> int:
         return len(self.owned[slot]) * self.block_size
 
+    # slot-scoped forms (trivial here; _ShardedBlockManager scopes them to the
+    # slot's replica pool): the engine calls ONLY these where pool locality
+    # matters, so data parallelism needs no branching in the engine
+    def can_allocate_for(self, slot: int, n: int) -> bool:
+        return self.can_allocate(n)
+
+    def num_free_for(self, slot: int) -> int:
+        return self.num_free
+
     def max_fit(self, slot: int) -> int:
         """Largest block count a request in this slot could ever hold."""
         return min(self.total_blocks, self.max_blocks)
 
+    def same_pool(self, slot_a: int, slot_b: int) -> bool:
+        return True
+
+    def owned_for(self, slot: int) -> List[int]:
+        return self.owned[slot]
+
+    def add_hit_tokens(self, slot: int, n: int) -> None:
+        self.hit_tokens += n
+
+
+class _ShardedBlockManager:
+    """dp independent per-replica block pools (a copy of
+    ray_tpu/llm/paged.py:273-372): slot s belongs to replica
+    model_runner.slot_replica(s, slots_per)[0], and the block ids handed out
+    are replica-LOCAL (each replica's device
+    tables index its own pool partition). The prefix cache is per replica
+    too: a cached block can serve only slots whose tables reach its pool."""
+
+    def __init__(self, num_blocks: int, block_size: int, max_blocks_per_slot: int,
+                 slots: int, dp: int, enable_prefix_caching: bool = True):
+        assert num_blocks % dp == 0 and slots % dp == 0
+        self.dp = dp
+        self.block_size = block_size
+        self.max_blocks = max_blocks_per_slot
+        self.slots_per = slots // dp
+        self.per_replica_blocks = num_blocks // dp
+        self.subs = [_BlockManager(num_blocks // dp, block_size, max_blocks_per_slot,
+                                   self.slots_per, enable_prefix_caching)
+                     for _ in range(dp)]
+
+    def _sub(self, slot: int):
+        replica, local = slot_replica(slot, self.slots_per)
+        return self.subs[replica], local
+
+    # -- aggregates (metrics) --
+    @property
+    def total_blocks(self) -> int:
+        return sum(s.total_blocks for s in self.subs)
+
+    @property
+    def num_free(self) -> int:
+        return sum(s.num_free for s in self.subs)
+
+    @property
+    def hit_tokens(self) -> int:
+        return sum(s.hit_tokens for s in self.subs)
+
+    @hit_tokens.setter
+    def hit_tokens(self, value: int) -> None:
+        # a hit belongs to one replica's counter: add_hit_tokens(slot, n)
+        raise AttributeError("use add_hit_tokens(slot, n)")
+
+    def add_hit_tokens(self, slot: int, n: int) -> None:
+        self._sub(slot)[0].hit_tokens += n
+
+    @property
+    def cached(self) -> Dict[Tuple[int, bytes], int]:
+        return {(r, key): bid for r, s in enumerate(self.subs) for key, bid in s.cached.items()}
+
+    # -- slot-scoped --
+    def blocks_needed(self, tokens: int) -> int:
+        return -(-tokens // self.block_size)
+
+    def can_allocate_for(self, slot: int, n: int) -> bool:
+        return self._sub(slot)[0].can_allocate(n)
+
+    def num_free_for(self, slot: int) -> int:
+        return self._sub(slot)[0].num_free
+
+    def max_fit(self, slot: int) -> int:
+        return min(self.per_replica_blocks, self.max_blocks)
+
+    def same_pool(self, slot_a: int, slot_b: int) -> bool:
+        return slot_replica(slot_a, self.slots_per)[0] == slot_replica(slot_b, self.slots_per)[0]
+
+    def allocate(self, slot: int, n: int) -> List[int]:
+        sub, local = self._sub(slot)
+        return sub.allocate(local, n)
+
+    def release(self, slot: int) -> None:
+        sub, local = self._sub(slot)
+        sub.release(local)
+
+    def match_prefix(self, slot: int, prompt: List[int]) -> List[int]:
+        sub, local = self._sub(slot)
+        return sub.match_prefix(local, prompt)
+
+    def register_blocks(self, slot: int, prompt: List[int], block_ids: List[int],
+                        skip_blocks: int) -> None:
+        sub, local = self._sub(slot)
+        sub.register_blocks(local, prompt, block_ids, skip_blocks)
+
+    def slot_capacity(self, slot: int) -> int:
+        sub, local = self._sub(slot)
+        return sub.slot_capacity(local)
+
+    def owned_for(self, slot: int) -> List[int]:
+        sub, local = self._sub(slot)
+        return sub.owned[local]
+
 
 def make_block_manager(num_blocks: int, block_size: int, max_blocks_per_slot: int,
-                       slots: int, dp: int = 1,
-                       enable_prefix_caching: bool = True) -> _BlockManager:
+                       slots: int, dp: int = 1, enable_prefix_caching: bool = True):
     if dp > 1:
-        raise NotImplementedError("paged KV with data_parallel_size > 1: ROADMAP A2f")
+        return _ShardedBlockManager(num_blocks, block_size, max_blocks_per_slot, slots, dp,
+                                    enable_prefix_caching)
     return _BlockManager(num_blocks, block_size, max_blocks_per_slot, slots,
                          enable_prefix_caching)
 
@@ -467,50 +588,187 @@ def spec_multi_paged(
             generator, mesh=mesh)[1:]))
 
 
+# ------------------------------------------------- data-parallel (dp) composition
+#
+# kv_layout="paged" with data_parallel_size > 1 (ray_tpu/llm/paged.py:820-1089):
+# each rank holds its replica's pool partition plus a scratch block, and its
+# slots' tables hold replica-LOCAL block ids. The JAX functions take the
+# whole [S] inputs and return the whole [.., S] outputs of one SPMD program;
+# these take the same whole inputs on every rank and return the same whole
+# outputs there: a batched call runs the dp 1 function on this replica's
+# rows and all-gathers the per-slot outputs over "dp"
+# (model_runner.over_replicas), and decode and verify touch no data of
+# another replica. A call for one slot takes the global slot, as JAX's does,
+# and runs on the owning replica only, at its local slot: the ShardRunner
+# (llm/tp_worker.py) makes it there and nowhere else, and these functions
+# refuse a slot of another replica. Where JAX runs such a call on every
+# replica and redirects a non-owner's install into its scratch block, the
+# other replicas here do nothing, and the prefix-cache warm path gathers the
+# cached blocks on the owner alone, with no psum (JAX's warm path psums them
+# because its suffix prefill runs in auto mode over the whole mesh).
+# Owner-only compute gives the owner the same result without the collective.
+
+def _local_slot(mesh, slot: int, slots_per: int) -> int:
+    """`slot`'s index among this rank's slots; its replica must own it."""
+    replica, local = slot_replica(slot, slots_per)
+    if replica != axis_index(mesh, "dp"):
+        raise ValueError(f"slot {int(slot)} is replica {replica}'s, not this rank's "
+                         f"({axis_index(mesh, 'dp')})")
+    return local
+
+
+@torch.no_grad()
+def decode_step_paged_dp(params, state: PagedState, tokens, active, cfg: ModelConfig, mesh):
+    """decode_step_paged on this replica's slots -> (state, logits [S, vocab]
+    of every replica)."""
+    (logits,) = over_replicas(
+        mesh, lambda t, a: (decode_step_paged(params, state, t, a, cfg, mesh)[1],),
+        (tokens, active), (0,))
+    return state, logits
+
+
+@torch.no_grad()
+def decode_multi_paged_dp(params, state: PagedState, tokens, active, cfg: ModelConfig,
+                          n_steps: int, temperature, top_p, top_k, steps_left,
+                          generator=None, mesh=None):
+    """decode_multi_paged on this replica's slots with its own generator
+    (the replicas' streams differ, as JAX folds the dp index into its keys)
+    -> (state, tokens [n_steps, S] of every replica). A replica with no
+    active slot keeps its tokens without running the model."""
+    (toks,) = over_replicas(
+        mesh, lambda t, a, tt, p, k, sl: decode_multi_paged(
+            params, state, t, a, cfg, n_steps, tt, p, k, sl, generator, mesh)[1:],
+        (tokens, active, temperature, top_p, top_k, steps_left), (1,), _idle_burst(n_steps))
+    return state, toks
+
+
+@torch.no_grad()
+def install_prefill_dp(state: PagedState, k, v, block_ids, true_len: int, slot: int,
+                       n_blocks: int, mesh, slots_per: int) -> PagedState:
+    """install_prefill into `slot` on the replica that owns it (replica-local ids)."""
+    return install_prefill(state, k, v, block_ids, true_len,
+                           _local_slot(mesh, slot, slots_per), n_blocks)
+
+
+@torch.no_grad()
+def install_with_prefix_dp(state: PagedState, k_suf, v_suf, new_ids, table_row,
+                           true_len: int, slot: int, n_new: int, mesh,
+                           slots_per: int) -> PagedState:
+    """install_with_prefix into `slot` on the replica that owns it."""
+    return install_with_prefix(state, k_suf, v_suf, new_ids, table_row, true_len,
+                               _local_slot(mesh, slot, slots_per), n_new)
+
+
+@torch.no_grad()
+def append_block_dp(state: PagedState, slot: int, index: int, block_id: int, mesh,
+                    slots_per: int) -> PagedState:
+    """append_block to `slot`'s table on the replica that owns it."""
+    return append_block(state, _local_slot(mesh, slot, slots_per), index, block_id)
+
+
+@torch.no_grad()
+def prefill_suffix_from_state_dp(params, state: PagedState, block_ids, tokens,
+                                 true_suffix_len: int, cfg: ModelConfig, n_blocks: int,
+                                 mesh, slots_per: int, slot: int):
+    """The prefix-cache warm path on the replica that owns `slot`: its cached
+    blocks gathered from its own partition, then the suffix prefill ->
+    (k_suffix, v_suffix, last_logits)."""
+    _local_slot(mesh, slot, slots_per)
+    return prefill_suffix_from_state(params, state, block_ids, tokens, true_suffix_len, cfg,
+                                     n_blocks, mesh)
+
+
+@torch.no_grad()
+def spec_verify_step_paged_dp(params, state: PagedState, window, draft_len, active,
+                              cfg: ModelConfig, temperature, top_p, top_k, generator=None,
+                              mesh=None):
+    """spec_verify_step_paged on this replica's slots -> (state, tokens
+    [S, k+1], n_accepted [S]) of every replica."""
+    toks, n_acc = over_replicas(
+        mesh, lambda w, a, d, tt, p, k: spec_verify_step_paged(
+            params, state, w, d, a, cfg, tt, p, k, generator, mesh=mesh)[1:],
+        (window, active, draft_len, temperature, top_p, top_k), (0, 0),
+        lambda w, a, d, *_: _idle_verify(w, d))
+    return state, toks, n_acc
+
+
+@torch.no_grad()
+def spec_multi_paged_dp(params, state: PagedState, hist, hlen, active, cfg: ModelConfig,
+                        temperature, top_p, top_k, m: int, k: int, nmax: int,
+                        generator=None, mesh=None):
+    """spec_multi_paged on this replica's slots -> (state, toks_m [m,S,k+1],
+    acc_m [m,S], drafted_m [m,S]) of every replica."""
+    out = over_replicas(
+        mesh, lambda h, a, hl, tt, p, kk: spec_multi_paged(
+            params, state, h, hl, a, cfg, tt, p, kk, m, k, nmax, generator=generator,
+            mesh=mesh)[1:],
+        (hist, active, hlen, temperature, top_p, top_k), (1, 1, 1),
+        lambda h, a, hl, *_: _idle_multi(m, k)(h, hl))
+    return (state, *out)
+
+
 class PagedOps:
     """Engine-facing calls of the paged device ops for one pool, on this
-    rank's shard under tensor parallelism (the JAX class also routes dp > 1
-    and pp > 1 through sharded variants: ROADMAP A2f, A6)."""
+    rank's shard under tensor parallelism; dp > 1 routes through the _dp
+    variants, whose slot arguments are global (ray_tpu/llm/paged.py:1092-1189;
+    pp > 1 is ROADMAP A2g)."""
 
-    def __init__(self, cfg: ModelConfig, mesh=None):
+    def __init__(self, cfg: ModelConfig, mesh=None, slots: int = 1):
         self.cfg = cfg
         self.mesh = mesh
+        self.dp = axis_size(mesh, "dp")
+        self.slots_per = slots // self.dp
 
     def install_prefill(self, state, k, v, block_ids, true_len, slot, n_blocks):
+        if self.dp > 1:
+            return install_prefill_dp(state, k, v, block_ids, true_len, slot, n_blocks,
+                                      self.mesh, self.slots_per)
         return install_prefill(state, k, v, block_ids, true_len, slot, n_blocks)
 
     def install_with_prefix(self, state, k_suf, v_suf, new_ids, table_row, true_len,
                             slot, n_new):
+        if self.dp > 1:
+            return install_with_prefix_dp(state, k_suf, v_suf, new_ids, table_row, true_len,
+                                          slot, n_new, self.mesh, self.slots_per)
         return install_with_prefix(state, k_suf, v_suf, new_ids, table_row, true_len,
                                    slot, n_new)
 
     def append_block(self, state, slot, index, block_id):
+        if self.dp > 1:
+            return append_block_dp(state, slot, index, block_id, self.mesh, self.slots_per)
         return append_block(state, slot, index, block_id)
 
     def prefill_suffix_from_state(self, params, state, block_ids, tokens,
-                                  true_suffix_len, n_blocks):
+                                  true_suffix_len, n_blocks, slot):
+        if self.dp > 1:
+            return prefill_suffix_from_state_dp(params, state, block_ids, tokens,
+                                                true_suffix_len, self.cfg, n_blocks,
+                                                self.mesh, self.slots_per, slot)
         return prefill_suffix_from_state(params, state, block_ids, tokens,
                                          true_suffix_len, self.cfg, n_blocks, self.mesh)
 
     def decode_step(self, params, state, tokens, active):
+        if self.dp > 1:
+            return decode_step_paged_dp(params, state, tokens, active, self.cfg, self.mesh)
         return decode_step_paged(params, state, tokens, active, self.cfg, self.mesh)
 
     def decode_multi(self, params, state, tokens, active, n_steps, temperature, top_p,
                      top_k, steps_left, generator=None):
-        return decode_multi_paged(params, state, tokens, active, self.cfg, n_steps,
-                                  temperature, top_p, top_k, steps_left, generator,
-                                  mesh=self.mesh)
+        fn = decode_multi_paged_dp if self.dp > 1 else decode_multi_paged
+        return fn(params, state, tokens, active, self.cfg, n_steps, temperature, top_p,
+                  top_k, steps_left, generator, mesh=self.mesh)
 
     def spec_verify(self, params, state, window, draft_len, active, temperature, top_p,
                     top_k, generator=None):
-        return spec_verify_step_paged(params, state, window, draft_len, active, self.cfg,
-                                      temperature, top_p, top_k, generator, mesh=self.mesh)
+        fn = spec_verify_step_paged_dp if self.dp > 1 else spec_verify_step_paged
+        return fn(params, state, window, draft_len, active, self.cfg, temperature, top_p,
+                  top_k, generator, mesh=self.mesh)
 
     def spec_multi(self, params, state, hist, hlen, active, temperature, top_p, top_k, m,
                    k, nmax, generator=None):
-        return spec_multi_paged(params, state, hist, hlen, active, self.cfg, temperature,
-                                top_p, top_k, m, k, nmax, generator=generator,
-                                mesh=self.mesh)
+        fn = spec_multi_paged_dp if self.dp > 1 else spec_multi_paged
+        return fn(params, state, hist, hlen, active, self.cfg, temperature, top_p, top_k,
+                  m, k, nmax, generator=generator, mesh=self.mesh)
 
 
 # ------------------------------------------------------------------ chunked prefill

@@ -1,4 +1,4 @@
-"""The device half of a TorchLLMEngine, and tensor parallelism's followers.
+"""The device half of a TorchLLMEngine, and the followers of a multi-rank one.
 
 ``ShardRunner`` holds what an engine keeps on its device: the weights (this
 rank's shard under tensor parallelism), the KV state, the sampling
@@ -7,19 +7,39 @@ each taking host values (token lists, numpy arrays, ints) and returning
 device tensors. The engine's scheduler, block manager and request
 bookkeeping stay on the host of rank 0.
 
-With ``tensor_parallel_size = N > 1`` the engine is rank 0 of an N-rank mesh
-(``Followers``): it spawns N - 1 follower processes, each running
-``follower_main``, and announces every call over the tp group (the op's
-name and its small host arguments, ``broadcast_object_list``) before making
-it itself; each follower makes the same call on its own ShardRunner, so the
-collectives inside the model meet. Every rank holds the same all-gathered
-logits and a generator seeded and advanced alike, so sampling inside a
-fused burst stays in step; rank 0's host-side tokens ride in the next
-call's arguments. A follower that raises prints its traceback and exits at
-once, which fails rank 0's next collective ("connection closed") instead of
-leaving it to wait. An idle engine pings the followers (``ping``) well
-inside the group timeout, since a follower waiting for the next call is
-inside a collective too.
+With ``data_parallel_size`` = D and ``tensor_parallel_size`` = T, D × T > 1,
+the engine is rank 0 of a mesh of D × T ranks, MeshSpec(dp=D, tp=T)
+(``Followers``): it spawns the other ranks, each running ``follower_main``,
+and announces every call over the whole world (the op's name and its small
+host arguments, ``broadcast_object_list``) before making it itself; each
+follower makes the same call on its own ShardRunner. The collectives inside
+the model run over this rank's tp subgroup (``mesh.get_group("tp")``), so
+they meet among the T ranks of one replica. Every rank of a replica holds
+the same all-gathered logits and a generator seeded and advanced alike, so
+sampling inside a fused burst stays in step; rank 0's host-side tokens ride
+in the next call's arguments.
+
+Data parallelism: each replica holds the whole model (its tp shards) and
+max_num_seqs / D slots (``model_runner.slot_replica`` says which replica owns
+a slot). A call for one slot (``prefill``, ``prefill_paged``,
+``prefill_prefix``, ``install_transfer``, ``append_block``) runs on the owning
+replica only, which ``ShardRunner._local`` decides here and nowhere else, and
+a prefill's first token reaches rank 0 by one small broadcast over "dp" from
+the owner's tp-rank 0. A P/D transfer's KV is not announced: rank 0 sends it
+to the owning rank alone. Where the JAX package runs a slot's prefill on every
+replica and masks the install, and psums the owner's cached blocks for the
+prefix cache's warm path, owner-only compute gives the owner the same result
+with no collective. A batched call (``decode``, ``spec_verify``,
+``spec_multi``) runs the dp 1 function on the replica's slots, whose per-slot
+results are all-gathered over "dp" (model_runner.over_replicas); a replica
+with no active slot skips the model and still joins the gather. Each replica
+seeds its generator with its dp index.
+
+A follower that raises prints its traceback and exits at once, which fails
+rank 0's next collective ("connection closed") instead of leaving it to
+wait. An idle engine pings the followers (``ping``) well inside the group
+timeout, since a follower waiting for the next call is inside a collective
+too.
 
 This module imports neither JAX nor the JAX package.
 """
@@ -38,8 +58,9 @@ import torch.distributed as dist
 
 from ray_tpu_torch.models import checkpoint, llama
 from ray_tpu_torch.models.config import torch_dtype
+from ray_tpu_torch.ops import flash_attention
 from ray_tpu_torch.ops.quant import QTensor, quantize_llama_params
-from ray_tpu_torch.parallel.mesh import GROUP_TIMEOUT_S, MeshSpec, build_mesh
+from ray_tpu_torch.parallel.mesh import GROUP_TIMEOUT_S, MeshSpec, axis_index, axis_size, build_mesh
 
 from . import model_runner, paged
 from .config import LLMConfig
@@ -49,6 +70,10 @@ from .config import LLMConfig
 PING_S = GROUP_TIMEOUT_S / 4
 # seconds shutdown() waits for each follower to exit before it kills it
 JOIN_S = 10.0
+# what a rank counts (ShardRunner.rank_counts): the prefills it computed
+# whole or chunked, those over a cached prefix, and the decode steps (or
+# verify windows) in which its replica had an active slot
+COUNTS = ("prefills", "prefix_prefills", "active_steps")
 
 
 def load_params(config: LLMConfig, device, mesh=None, params=None):
@@ -95,7 +120,9 @@ def _pad_blocks(k: torch.Tensor, v: torch.Tensor, n_blocks: int, bs: int):
 class ShardRunner:
     """An engine's device state on one rank and the calls that change it.
     `mesh` is None on one device; `params` a whole parameter dict or None
-    (see load_params)."""
+    (see load_params). Under data parallelism the rank serves its replica's
+    slots: a call for one slot runs on the owning replica only, at its local
+    slot, and a batched call on the replica's rows (``ops``)."""
 
     def __init__(self, config: LLMConfig, device, mesh=None, params=None):
         self.config = config
@@ -104,15 +131,47 @@ class ShardRunner:
         self.mesh = mesh
         self.params = load_params(config, device, mesh, params)
         self.state = None  # model_runner.DecodeState | paged.PagedState
-        self.pops: Optional[paged.PagedOps] = None
+        self.ops = None  # model_runner.SlotOps | paged.PagedOps
+        self.dp = axis_size(mesh, "dp")
+        self.replica = axis_index(mesh, "dp")
+        self.tp_index = axis_index(mesh, "tp")
+        self.slots_per = config.max_num_seqs // self.dp
+        # one sampling stream per replica (JAX folds the dp index into its
+        # keys); the tp ranks of a replica seed and advance theirs alike
         self.gen = torch.Generator(device=device)
-        self.gen.manual_seed(0)
+        self.gen.manual_seed(self.replica)
+        self.counts = dict.fromkeys(COUNTS, 0)
 
     # -- helpers ------------------------------------------------------------------
     def _t(self, a, dtype=None) -> torch.Tensor:
         """A host array (or list) as a tensor on this rank's device."""
         t = torch.from_numpy(a) if isinstance(a, np.ndarray) else torch.as_tensor(a)
         return t.to(self.device) if dtype is None else t.to(self.device, dtype)
+
+    def _local(self, slot: int) -> Optional[int]:
+        """The local slot when this rank's replica owns `slot`, else None:
+        the one gate of the calls for one slot."""
+        replica, local = model_runner.slot_replica(slot, self.slots_per)
+        return local if replica == self.replica else None
+
+    def _from_owner(self, slot: int, tok: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+        """A slot's first token [1] on rank 0: under dp > 1 one broadcast over
+        "dp" from the owning replica's tp-rank 0 (the tp ranks of a replica
+        sample alike, so only tp-rank 0 of each replica joins)."""
+        if self.dp == 1 or self.tp_index != 0:
+            return tok
+        if tok is None:
+            tok = torch.zeros((1,), dtype=torch.int64, device=self.device)
+        group = self.mesh.get_group("dp")
+        owner = model_runner.slot_replica(slot, self.slots_per)[0]
+        dist.broadcast(tok, src=dist.get_global_rank(group, owner), group=group)
+        return tok
+
+    def _count_active(self, active, steps: int) -> None:
+        """Count `steps` decode steps (or verify windows) when this replica
+        has an active slot in them."""
+        if np.asarray(active)[model_runner.replica_slots(self.replica, self.slots_per)].any():
+            self.counts["active_steps"] += steps
 
     def pad_to_bucket(self, prompt_ids: List[int]) -> torch.Tensor:
         s_pad = next(b for b in self.config.buckets() if b >= len(prompt_ids))
@@ -140,128 +199,176 @@ class ShardRunner:
     def _sampling(self, temp, top_p, top_k):
         return self._t(temp), self._t(top_p), self._t(top_k)
 
-    # -- calls the engine makes (each announced to the followers under tp) ----------
+    # -- calls the engine makes (each announced to the followers) -------------------
     def ping(self) -> None:
         """Nothing: keeps a waiting follower inside its group timeout."""
 
     def init_state(self) -> None:
-        """The decode KV state: the paged pool or the slot cache."""
+        """The decode KV state: the paged pool or the slot cache (this
+        replica's partition or slots under dp)."""
         c = self.config
         if c.kv_layout == "paged":
-            self.pops = paged.PagedOps(self.cfg, self.mesh)
+            self.ops = paged.PagedOps(self.cfg, self.mesh, c.max_num_seqs)
             self.state = paged.init_paged_state(
                 self.cfg, c.max_num_seqs, c.max_model_len, c.kv_pool_blocks(),
                 c.kv_block_size, self.device, mesh=self.mesh)
         else:
+            self.ops = model_runner.SlotOps(self.cfg, self.mesh)
             self.state = model_runner.init_state(self.cfg, c.max_num_seqs, c.max_model_len,
                                                  self.device, mesh=self.mesh)
 
-    def prefill(self, prompt: List[int], slot: int, sampling) -> torch.Tensor:
+    def prefill(self, prompt: List[int], slot: int, sampling) -> Optional[torch.Tensor]:
         """Slot layout: the prompt into `slot`, whole or chunk by chunk (then
         installed at once) -> its first token [1]."""
         c = self.config
-        if c.prefill_chunk and len(prompt) > c.prefill_chunk:
-            # bounded activation memory; the assembled KV is installed at once
-            k, v, last = self.prefill_kv(prompt)
-            self.state = model_runner.install_kv(self.state, k, v, len(prompt), slot)
-        else:
-            self.state, last = model_runner.prefill(
-                self.params, self.state, self.pad_to_bucket(prompt), len(prompt), slot,
-                self.cfg, mesh=self.mesh)
-        return self.sample_one(last, *sampling)
+        local, tok = self._local(slot), None
+        if local is not None:
+            if c.prefill_chunk and len(prompt) > c.prefill_chunk:
+                # bounded activation memory; the assembled KV is installed at once
+                k, v, last = self.prefill_kv(prompt)
+                self.state = model_runner.install_kv(self.state, k, v, len(prompt), local)
+            else:
+                self.state, last = model_runner.prefill(
+                    self.params, self.state, self.pad_to_bucket(prompt), len(prompt), local,
+                    self.cfg, mesh=self.mesh)
+            self.counts["prefills"] += 1
+            tok = self.sample_one(last, *sampling)
+        return self._from_owner(slot, tok)
 
     def _install_paged(self, slot: int, k, v, n: int, block_ids: List[int]) -> None:
         k, v = _pad_blocks(k, v, len(block_ids), self.config.kv_block_size)
-        self.state = self.pops.install_prefill(self.state, k, v, block_ids, n, slot,
-                                               len(block_ids))
+        self.state = self.ops.install_prefill(self.state, k, v, block_ids, n, slot,
+                                              len(block_ids))
 
     def prefill_paged(self, prompt: List[int], slot: int, block_ids: List[int],
-                      sampling) -> torch.Tensor:
+                      sampling) -> Optional[torch.Tensor]:
         """Paged layout: the prompt into its allocated blocks -> its first token."""
-        k, v, last = self.prefill_kv(prompt)
-        self._install_paged(slot, k, v, len(prompt), block_ids)
-        return self.sample_one(last, *sampling)
+        tok = None
+        if self._local(slot) is not None:
+            k, v, last = self.prefill_kv(prompt)
+            self._install_paged(slot, k, v, len(prompt), block_ids)
+            self.counts["prefills"] += 1
+            tok = self.sample_one(last, *sampling)
+        return self._from_owner(slot, tok)
 
     def prefill_prefix(self, suffix: List[int], n: int, slot: int, cached_ids: List[int],
-                       new_ids: List[int], sampling) -> torch.Tensor:
+                       new_ids: List[int], sampling) -> Optional[torch.Tensor]:
         """Paged layout with a prefix hit: the suffix over the cached blocks'
         KV into new blocks; the slot's table holds the cached ids, then the
         new -> the first token."""
         c = self.config
-        k, v, last = self.pops.prefill_suffix_from_state(
-            self.params, self.state, cached_ids, self.pad_to_bucket(suffix), len(suffix),
-            len(cached_ids))
-        k, v = _pad_blocks(k, v, len(new_ids), c.kv_block_size)
-        row = np.zeros((c.max_model_len // c.kv_block_size,), np.int64)
-        row[:len(cached_ids) + len(new_ids)] = cached_ids + new_ids
-        self.state = self.pops.install_with_prefix(self.state, k, v, new_ids, row, n, slot,
-                                                   len(new_ids))
-        return self.sample_one(last, *sampling)
+        tok = None
+        if self._local(slot) is not None:
+            k, v, last = self.ops.prefill_suffix_from_state(
+                self.params, self.state, cached_ids, self.pad_to_bucket(suffix), len(suffix),
+                len(cached_ids), slot)
+            k, v = _pad_blocks(k, v, len(new_ids), c.kv_block_size)
+            row = np.zeros((c.max_model_len // c.kv_block_size,), np.int64)
+            row[:len(cached_ids) + len(new_ids)] = cached_ids + new_ids
+            self.state = self.ops.install_with_prefix(self.state, k, v, new_ids, row, n, slot,
+                                                      len(new_ids))
+            self.counts["prefix_prefills"] += 1
+            tok = self.sample_one(last, *sampling)
+        return self._from_owner(slot, tok)
 
     def install_transfer(self, slot: int, k, v, n: int, block_ids: Optional[List[int]]):
         """A P/D transfer's KV (tensors or f32 numpy arrays) copied to the
-        device and installed: into `block_ids` (paged) or `slot`."""
+        device and installed: into `block_ids` (paged) or `slot`, on the
+        replica that owns the slot. Under dp > 1 (at tp 1: P/D under tp is
+        refused) the followers are announced no KV (Followers.announce):
+        rank 0 sends it to the owning rank alone."""
+        local = self._local(slot)
+        if self.dp > 1:
+            owner = dist.get_global_rank(self.mesh.get_group("dp"),
+                                         model_runner.slot_replica(slot, self.slots_per)[0])
+            if dist.get_rank() == 0 and owner != 0:
+                dist.send_object_list([x.cpu() if isinstance(x, torch.Tensor) else x
+                                       for x in (k, v)], dst=owner)
+            elif local is not None and owner != 0:
+                box: List[Any] = [None, None]
+                dist.recv_object_list(box, src=0)
+                k, v = box
+        if local is None:
+            return
         k, v = ((x if isinstance(x, torch.Tensor) else torch.tensor(np.asarray(x)))
                 .to(self.device) for x in (k, v))
         if block_ids is not None:
             self._install_paged(slot, k, v, n, block_ids)
         else:
-            self.state = model_runner.install_kv(self.state, k, v, n, slot)
+            self.state = model_runner.install_kv(self.state, k, v, n, local)
 
     def append_block(self, slot: int, index: int, block_id: int) -> None:
-        self.state = self.pops.append_block(self.state, slot, index, block_id)
+        if self._local(slot) is not None:
+            self.state = self.ops.append_block(self.state, slot, index, block_id)
 
     def decode(self, last, active, k_steps: int, temp, top_p, top_k, steps) -> torch.Tensor:
         """One decode step, or a fused burst of k_steps, for every slot ->
-        the sampled tokens [k_steps, slots]."""
+        the sampled tokens [k_steps, slots]. Under dp > 1 a single step is a
+        burst of one too, so that tokens, not logits, cross the replicas."""
+        self._count_active(active, k_steps)
         last, active = self._t(last), self._t(active)
         temp, top_p, top_k = self._sampling(temp, top_p, top_k)
-        if k_steps > 1:
-            steps_left = self._t(steps)
-            if self.pops is not None:
-                self.state, toks = self.pops.decode_multi(
-                    self.params, self.state, last, active, k_steps, temp, top_p, top_k,
-                    steps_left, self.gen)
-            else:
-                self.state, toks = model_runner.decode_multi(
-                    self.params, self.state, last, active, self.cfg, k_steps, temp, top_p,
-                    top_k, steps_left, self.gen, mesh=self.mesh)
+        if k_steps > 1 or self.dp > 1:
+            self.state, toks = self.ops.decode_multi(
+                self.params, self.state, last, active, k_steps, temp, top_p, top_k,
+                self._t(steps), self.gen)
             return toks
-        if self.pops is not None:
-            self.state, logits = self.pops.decode_step(self.params, self.state, last, active)
-        else:
-            self.state, logits = model_runner.decode_step(self.params, self.state, last,
-                                                          active, self.cfg, mesh=self.mesh)
+        self.state, logits = self.ops.decode_step(self.params, self.state, last, active)
         return model_runner.sample_tokens(logits, temp, top_p, top_k, self.gen)[None, :]
+
+    def decode_logits(self, last, active) -> torch.Tensor:
+        """One decode step of every slot -> its logits [S, vocab], under dp
+        > 1 every replica's rows gathered (SlotOps.decode_step,
+        paged.decode_step_paged_dp): a teacher-forced check's step, where
+        the engine's own steps sample on each replica (decode)."""
+        self._count_active(active, 1)
+        self.state, logits = self.ops.decode_step(self.params, self.state, self._t(last),
+                                                  self._t(active))
+        return logits
 
     def spec_verify(self, window, draft_len, active, temp, top_p, top_k):
         """One speculative verify window -> (tokens [S, k+1], n_accepted [S])."""
+        self._count_active(active, 1)
         window, draft_len, active = self._t(window), self._t(draft_len), self._t(active)
         temp, top_p, top_k = self._sampling(temp, top_p, top_k)
-        if self.pops is not None:
-            self.state, toks, n_acc = self.pops.spec_verify(
-                self.params, self.state, window, draft_len, active, temp, top_p, top_k,
-                generator=self.gen)
-        else:
-            self.state, toks, n_acc = model_runner.spec_verify_step(
-                self.params, self.state, window, draft_len, active, self.cfg, temp, top_p,
-                top_k, generator=self.gen, mesh=self.mesh)
+        self.state, toks, n_acc = self.ops.spec_verify(
+            self.params, self.state, window, draft_len, active, temp, top_p, top_k,
+            generator=self.gen)
         return toks, n_acc
 
     def spec_multi(self, hist, hlen, active, temp, top_p, top_k, m: int, k: int, nmax: int):
         """m fused speculative windows, proposed on the device -> (toks_m
         [m,S,k+1], acc_m [m,S], drafted_m [m,S])."""
+        self._count_active(active, m)
         hist, hlen, active = self._t(hist), self._t(hlen), self._t(active)
         temp, top_p, top_k = self._sampling(temp, top_p, top_k)
-        if self.pops is not None:
-            self.state, *out = self.pops.spec_multi(
-                self.params, self.state, hist, hlen, active, temp, top_p, top_k, m, k, nmax,
-                generator=self.gen)
-        else:
-            self.state, *out = model_runner.spec_multi(
-                self.params, self.state, hist, hlen, active, self.cfg, temp, top_p, top_k,
-                m, k, nmax, generator=self.gen, mesh=self.mesh)
+        self.state, *out = self.ops.spec_multi(
+            self.params, self.state, hist, hlen, active, temp, top_p, top_k, m, k, nmax,
+            generator=self.gen)
         return tuple(out)
+
+    def reset_counts(self) -> None:
+        """Zero this rank's counts, its flash kernels' launch counts and its
+        card's peak memory."""
+        self.counts = dict.fromkeys(COUNTS, 0)
+        flash_attention.reset_launch_count()
+        if self.device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(self.device)
+
+    def rank_counts(self) -> List[Dict[str, Any]]:
+        """Every rank's counts since reset_counts, by rank (gathered on each):
+        its replica and tp index, COUNTS, B1a's launches in its process and
+        its peak device memory in bytes (0 on the CPU)."""
+        mine = dict(self.counts, rank=dist.get_rank() if self.mesh is not None else 0,
+                    replica=self.replica, tp_rank=self.tp_index,
+                    flash_launches=flash_attention.launch_count(),
+                    peak_bytes=(torch.cuda.max_memory_allocated(self.device)
+                                if self.device.type == "cuda" else 0))
+        if self.mesh is None:
+            return [mine]
+        out: List[Any] = [None] * dist.get_world_size()
+        dist.all_gather_object(out, mine)
+        return out
 
 
 # ------------------------------------------------------------- tensor parallelism
@@ -285,10 +392,14 @@ def _host_copy(params):
             for name, val in params.items()}
 
 
-def _receive(group) -> tuple:
+def _receive() -> tuple:
     msg: List[Any] = [None]
-    dist.broadcast_object_list(msg, src=0, group=group)
+    dist.broadcast_object_list(msg, src=0)
     return msg[0]
+
+
+def _mesh_spec(config: LLMConfig) -> MeshSpec:
+    return MeshSpec(dp=config.data_parallel_size, tp=config.tensor_parallel_size)
 
 
 def follower_main(rank: int, init_method: str, devices: Sequence[str],
@@ -297,13 +408,11 @@ def follower_main(rank: int, init_method: str, devices: Sequence[str],
     rank 0 builds its own, then make every announced call until "stop". Any
     exception prints its traceback and exits the process at once."""
     try:
-        mesh = build_mesh(MeshSpec(tp=len(devices)), devices, rank=rank,
-                          init_method=init_method)
+        mesh = build_mesh(_mesh_spec(config), devices, rank=rank, init_method=init_method)
         runner = ShardRunner(config, torch.device(devices[rank]), mesh, params)
         del params
-        group = mesh.get_group("tp")
         while True:
-            op, args = _receive(group)
+            op, args = _receive()
             if op == "stop":
                 break
             getattr(runner, op)(*args)
@@ -315,9 +424,10 @@ def follower_main(rank: int, init_method: str, devices: Sequence[str],
 
 
 class Followers:
-    """Rank 0's side of tensor parallelism: starts len(devices) - 1 follower
-    processes ("spawn"), joins them in a mesh of tp = len(devices) as rank 0
-    (on devices[0]), and announces each call to them."""
+    """Rank 0's side of a multi-rank engine: starts len(devices) - 1 follower
+    processes ("spawn"), joins them in a mesh of dp = data_parallel_size and
+    tp = tensor_parallel_size as rank 0 (on devices[0]), and announces each
+    call to them."""
 
     def __init__(self, config: LLMConfig, devices: Sequence[torch.device], params=None):
         names = [str(d) for d in devices]
@@ -330,12 +440,10 @@ class Followers:
         for p in self.procs:
             p.start()
         try:
-            self.mesh = build_mesh(MeshSpec(tp=len(devices)), names, rank=0,
-                                   init_method=init_method)
+            self.mesh = build_mesh(_mesh_spec(config), names, rank=0, init_method=init_method)
         except BaseException:
             self.kill()
             raise
-        self._group = self.mesh.get_group("tp")
 
     def dead(self) -> Optional[str]:
         """Why a follower is gone, or None while all run."""
@@ -348,7 +456,9 @@ class Followers:
         gone = self.dead()
         if gone:
             raise RuntimeError(f"tensor-parallel follower {gone}")
-        dist.broadcast_object_list([(op, args)], src=0, group=self._group)
+        if op == "install_transfer":  # the KV goes to its owner alone, point to point
+            args = (args[0], None, None, *args[3:])
+        dist.broadcast_object_list([(op, args)], src=0)
 
     def kill(self) -> None:
         for p in self.procs:

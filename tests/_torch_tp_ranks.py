@@ -22,7 +22,7 @@ from ray_tpu_torch.llm import model_runner, paged
 from ray_tpu_torch.models import bridge, checkpoint, llama
 from ray_tpu_torch.models.config import get_config
 from ray_tpu_torch.ops.quant import quantize_llama_params
-from ray_tpu_torch.parallel import (INFER_RULES, TRAIN_RULES, MeshSpec, build_mesh,
+from ray_tpu_torch.parallel import (INFER_RULES, TRAIN_RULES, MeshSpec, axis_index, build_mesh,
                                     shard_leaf, shard_pytree, shard_view)
 from ray_tpu_torch.parallel import sharding
 from ray_tpu_torch.train import optim
@@ -316,3 +316,163 @@ def global_norm_of(_, spec, leaves, leaf_axes):
               for x, ax in zip(leaves, leaf_axes)]
     cuts = [sharding.cut_axes(ax, mesh, TRAIN_RULES) for ax in leaf_axes]
     return optim.global_norm(shards, mesh, cuts).item()
+
+
+# -- jobs of the data-parallel tests (tests/test_torch_port_data_parallel.py) ------------
+
+def _pool(state):
+    """This rank's pool partition without its scratch block, its tables and
+    lengths (numpy copies)."""
+    return dict(k=state.k[:, :-1].numpy().copy(), v=state.v[:, :-1].numpy().copy(),
+                tables=state.block_tables.numpy().copy(), lengths=state.lengths.numpy().copy())
+
+
+def _tokens(prompt, bucket):
+    tokens = torch.zeros((1, bucket), dtype=torch.int64)
+    tokens[0, :len(prompt)] = torch.tensor(prompt)
+    return tokens
+
+
+def _owns(mesh, slot, per):
+    """Whether this rank's replica owns `slot`: the single-slot _dp
+    functions run there only, as the engine's ShardRunner makes them."""
+    return model_runner.slot_replica(slot, per)[0] == axis_index(mesh, "dp")
+
+
+def _installed(params, cfg, mesh, plan, prompts):
+    """A fresh pool of plan's geometry, each prompt's detached prefill
+    installed by install_prefill_dp into plan["ids"][slot] (replica-local)
+    on the owning replica -> (state, the prefill logits [S, V])."""
+    s_n = len(prompts)
+    per = s_n // mesh.size(mesh.mesh_dim_names.index("dp"))
+    state = paged.init_paged_state(cfg, s_n, plan["max_len"], plan["num_blocks"], plan["bs"],
+                                   device="cpu", mesh=mesh)
+    first = []
+    for slot, (prompt, ids) in enumerate(zip(prompts, plan["ids"])):
+        k, v, last = model_runner.prefill_detached(params, _tokens(prompt, plan["bucket"]),
+                                                   len(prompt), cfg, mesh=mesh)
+        if _owns(mesh, slot, per):
+            paged.install_prefill_dp(state, k, v, ids, len(prompt), slot, len(ids), mesh, per)
+        first.append(last.numpy())
+    return state, np.stack(first), per
+
+
+def dp_functions(_, spec, np_params, cfg_name, plan):
+    """The paged _dp functions on this rank, in plan's order (the JAX side
+    runs the same calls): installs, appends, decode steps fed plan["feed"],
+    a greedy fused burst; on a second pool spec_multi and verify (when
+    plan["with_spec"]); then the prefix cache's warm path and
+    install_with_prefix_dp -> each step's outputs and this rank's pool
+    partition after it."""
+    mesh = mesh_of(spec)
+    cfg, params = _params(np_params, cfg_name)
+    params = model_runner.shard_params(params, cfg, mesh)
+    out = {"coord": coordinate(mesh)}
+    state, out["first"], per = _installed(params, cfg, mesh, plan, plan["prompts"])
+    out["installed"] = _pool(state)
+    for slot, (index, bid) in enumerate(plan["appends"]):
+        if _owns(mesh, slot, per):
+            paged.append_block_dp(state, slot, index, bid, mesh, per)
+    out["appended"] = _pool(state)
+    s_n = len(plan["prompts"])
+    active = torch.ones((s_n,), dtype=torch.bool)
+    greedy = (torch.zeros((s_n,)), torch.ones((s_n,)), torch.zeros((s_n,), dtype=torch.int64))
+    steps = []
+    for row in plan["feed"]:
+        state, logits = paged.decode_step_paged_dp(params, state, torch.tensor(row), active,
+                                                   cfg, mesh)
+        steps.append(logits.numpy())
+    out["steps"], out["decoded"] = np.stack(steps), _pool(state)
+    n = plan["burst"]
+    state, toks = paged.decode_multi_paged_dp(
+        params, state, torch.tensor(plan["burst_from"]), torch.tensor(plan["burst_active"]),
+        cfg, n, *greedy, torch.full((s_n,), n), None, mesh)
+    out["burst"], out["bursted"] = toks.numpy(), _pool(state)
+
+    state, _, _ = _installed(params, cfg, mesh, plan, plan["spec_prompts"])
+    for slot, (index, bid) in enumerate(plan["appends"]):
+        if _owns(mesh, slot, per):
+            paged.append_block_dp(state, slot, index, bid, mesh, per)
+    if plan["with_spec"]:
+        hist = torch.zeros((s_n, plan["max_len"]), dtype=torch.int64)
+        for slot, q in enumerate(plan["spec_prompts"]):
+            hist[slot, :len(q)] = torch.tensor(q)
+        hlen = torch.tensor([len(q) for q in plan["spec_prompts"]])
+        m, k, nmax = plan["spec"]
+        state, *multi = paged.spec_multi_paged_dp(params, state, hist, hlen, active, cfg,
+                                                  *greedy, m, k, nmax, None, mesh)
+        out["multi"], out["multied"] = [t.numpy() for t in multi], _pool(state)
+        window, draft_len = torch.tensor(plan["window"]), torch.tensor(plan["draft_len"])
+        state, toks, n_acc = paged.spec_verify_step_paged_dp(params, state, window, draft_len,
+                                                             active, cfg, *greedy, None, mesh)
+        out["verify"], out["verified"] = (toks.numpy(), n_acc.numpy()), _pool(state)
+
+    suffix, slot = plan["suffix"], plan["warm_slot"]
+    out["warm"] = None
+    if _owns(mesh, slot, per):
+        warm = paged.prefill_suffix_from_state_dp(params, state, plan["cached"],
+                                                  _tokens(suffix, plan["bs"]), len(suffix),
+                                                  cfg, len(plan["cached"]), mesh, per, slot)
+        out["warm"] = [t.numpy() for t in warm]
+        paged.install_with_prefix_dp(state, warm[0], warm[1], plan["new_ids"], plan["row"],
+                                     plan["warm_len"], slot, len(plan["new_ids"]), mesh, per)
+    out["warmed"] = _pool(state)
+    return out
+
+
+def runner_draws(_, spec, np_params, cfg_name, config_kw, prompt, n_steps, temperature):
+    """An engine's ShardRunner on this rank: `prompt` prefilled into every
+    slot, then a fused burst of n_steps for all slots, sampled at
+    `temperature` -> (coordinate, the first tokens (rank 0's are the
+    engine's), the burst's tokens [n_steps, S] as this rank holds them)."""
+    from ray_tpu_torch.llm.config import LLMConfig
+    from ray_tpu_torch.llm.tp_worker import ShardRunner
+
+    mesh = mesh_of(spec)
+    cfg, params = _params(np_params, cfg_name)
+    config = LLMConfig(model_source=cfg_name, dtype="float32", **config_kw)
+    runner = ShardRunner(config, torch.device("cpu"), mesh, params)
+    runner.init_state()
+    s_n = config.max_num_seqs
+    sampling = (temperature, 1.0, 0)
+    if config.kv_layout == "paged":
+        per_slot = config.max_model_len // config.kv_block_size
+        first = [runner.prefill_paged(prompt, s, list(range(s % runner.slots_per * per_slot,
+                                                            (s % runner.slots_per + 1) * per_slot)),
+                                      sampling) for s in range(s_n)]
+    else:
+        first = [runner.prefill(prompt, s, sampling) for s in range(s_n)]
+    first = [None if t is None else int(t[0]) for t in first]
+    toks = runner.decode(np.array([t or 0 for t in first], np.int64), np.ones((s_n,), bool),
+                         n_steps, np.full((s_n,), temperature, np.float32),
+                         np.ones((s_n,), np.float32), np.zeros((s_n,), np.int64),
+                         np.full((s_n,), n_steps, np.int64))
+    return coordinate(mesh), first, toks.numpy()
+
+
+def runner_ids(_, spec, np_params, model_cfg, config_kw, prompts, slots, n_gen):
+    """An engine's ShardRunner for `model_cfg` (a ModelConfig) on this rank:
+    prompts[i] prefilled into slots[i] (paged: into the block of its local
+    slot's index), then one greedy burst of n_gen - 1 steps for every slot
+    -> each prompt's n_gen ids as this rank holds them."""
+    from ray_tpu_torch.llm.config import LLMConfig
+    from ray_tpu_torch.llm.tp_worker import ShardRunner
+
+    mesh = mesh_of(spec)
+    params = bridge.params_from_jax(np_params, model_cfg, device="cpu")
+    config = LLMConfig(model_source=model_cfg, dtype="float32", **config_kw)
+    runner = ShardRunner(config, torch.device("cpu"), mesh, params)
+    runner.init_state()
+    s_n, greedy = config.max_num_seqs, (0.0, 1.0, 0)
+    first = np.zeros((s_n,), np.int64)
+    for prompt, slot in zip(prompts, slots):
+        if config.kv_layout == "paged":
+            local = model_runner.slot_replica(slot, runner.slots_per)[1]
+            tok = runner.prefill_paged(prompt, slot, [local], greedy)
+        else:
+            tok = runner.prefill(prompt, slot, greedy)
+        first[slot] = int(tok[0])
+    toks = runner.decode(first, np.ones((s_n,), bool), n_gen - 1, np.zeros((s_n,), np.float32),
+                         np.ones((s_n,), np.float32), np.zeros((s_n,), np.int64),
+                         np.full((s_n,), n_gen - 1, np.int64)).numpy()
+    return [[int(first[s])] + [int(t) for t in toks[:, s]] for s in slots]
