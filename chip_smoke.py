@@ -80,6 +80,21 @@ Phases, each fatal on failure (the script exits non-zero and prints no result):
      s, TTFT per prompt, decode tokens/s of the requests, of all replicas
      and of each rank, peak GiB per rank, the phase's wall time; two
      replicas on one card, not a DP speed;
+ PP. pipeline parallelism (A2g) on the same card, after DP, against the same
+     one-rank run (pp 1 = dp 1): TorchLLMEngine(LLMConfig(model_source=
+     "llama3-8b", pipeline_parallel_size=2, max_num_seqs=8,
+     max_model_len=1024)) as two stages sharing cuda:0 over gloo, each
+     holding its 16 layers and their KV (and over NCCL on cuda:0,1 too
+     where there are two cards), in the slot layout, paged (bench_serve's
+     blocks and buckets, prefix cache on) and paged with n-gram speculation
+     (k = 4), then paged at pp 2 x dp 2 on four ranks: DP's requests and
+     gates, with B1a n_layers / 2 = 16 times per whole prefill on each stage
+     rank of the owning replica and 0 elsewhere, the repeat computed on
+     every stage of one replica (paged: a prefix hit there on both stages),
+     the slot and paged engines' teacher-forced logits within 2e-2 of pp
+     1's, and each stage rank's weight bytes equal to its reckoned share (16
+     of 32 layers plus the embedding, final norm and head). Recorded as DP's;
+     ranks sharing one card over gloo, not a pp speed;
   5. paged serving: llama3-8b on the same weights with kv_layout="paged" and
      bench_serve.py's engine settings (32 slots, 1024 positions, 32-token
      blocks, buckets 32..1024): decode_step_paged against decode_step on the
@@ -1896,6 +1911,14 @@ def spec_path(torch, fa, card, params):
         for mode in ("ngram_single", "ngram_fused_m4"):
             if not res[mode]["drafted"]:
                 raise SystemExit(f"the n-gram proposer drafted nothing ({layout}, {mode})")
+        for mode, r in res.items():  # an oracle drafts the plain continuation: each window
+            if "oracle" in mode:  # after the prefill's token drafts SPEC_K, all accepted
+                batch = int(mode.split("_")[0][1:])
+                least = 0.9 * (r["tokens"] - batch) * SPEC_K / (SPEC_K + 1)
+                if r["accepted"] != r["drafted"] or r["drafted"] < least:
+                    raise SystemExit(f"{layout} {mode}: the oracle's drafts did not reach the "
+                                     f"engine: accepted {r['accepted']} of {r['drafted']}, "
+                                     f"want all of at least {least:.0f}")
         for r in res.values():
             del r["ids"]
         out[layout] = res
@@ -4892,20 +4915,21 @@ DP_ENGINE = dict(model_source="llama3-8b", data_parallel_size=DP, max_num_seqs=8
                  max_model_len=1024)
 DP_PAGED = dict(kv_layout="paged", kv_block_size=32,
                 prefill_buckets=[32, 64, 128, 256, 512, 1024])  # bench_serve's, 8 slots
-DP_LABEL = {"gloo": "2 replicas sharing one H100 over gloo", "nccl": "2 H100s over NCCL"}
 
 
-def dp_logits_check(eng, name, prompts, fed, ref_steps):
-    """Teacher-forced logits at dp 2 on the engine's own ranks, after its
-    requests: each prompt prefilled into a slot of its own replica (the
-    replicas take turns), then TP_FED decode steps of those slots fed dp 1's
-    greedy ids (ShardRunner.decode_logits: SlotOps.decode_step or
-    paged.decode_step_paged_dp, the replicas' rows gathered over "dp").
-    Every step's logits of every prompt must be within TP_TOL of dp 1's
-    (`ref_steps`, tp1_greedy) in max|d| / max|ref|."""
+def mesh_logits_check(eng, name, prompts, fed, ref_steps, side, base, phase):
+    """Teacher-forced logits of a multi-rank engine on its own ranks, after
+    its requests: each prompt prefilled into a slot of its own (the
+    replicas take turns), then TP_FED decode steps of those slots fed the
+    one-rank greedy ids (ShardRunner.decode_logits: the engine's batched
+    decode step, the replicas' rows gathered over "dp", the stages'
+    microbatches through the schedule). Every step's logits of every prompt
+    must be within TP_TOL of the one-rank run's (`ref_steps`, tp1_greedy) in
+    max|d| / max|ref|."""
     c = eng.config
-    n_slots, per = c.max_num_seqs, c.max_num_seqs // DP
-    slots = [i // DP + per * (i % DP) for i in range(len(prompts))]
+    dp = c.data_parallel_size
+    n_slots, per = c.max_num_seqs, c.max_num_seqs // dp
+    slots = [i // dp + per * (i % dp) for i in range(len(prompts))]
     greedy = (0.0, 1.0, 0)
     t0 = time.perf_counter()
     for prompt, slot in zip(prompts, slots):
@@ -4929,36 +4953,54 @@ def dp_logits_check(eng, name, prompts, fed, ref_steps):
     if c.kv_layout == "paged":
         for slot in slots:
             eng._blocks.release(slot)
-    print(f"    {name}: teacher-forced dp 2 vs dp 1 bf16 logits over {TP_FED} fed decode "
+    print(f"    {name}: teacher-forced {side} vs {base} bf16 logits over {TP_FED} fed decode "
           f"steps, max|d|/max|ref| per prompt {[f'{e:.3e}' for e in errs]} (tol {TP_TOL}); "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     if max(errs) > TP_TOL:
-        raise SystemExit(f"phase DP {name}: dp 2's logits disagree with dp 1's: {errs}")
+        raise SystemExit(f"phase {phase} {name}: {side}'s logits disagree with {base}'s: {errs}")
     return errs
 
 
-def dp_serve(torch, card, devices, prompts, name, check=None, **kw):
-    """TorchLLMEngine(LLMConfig(llama3-8b, data_parallel_size=2, **kw)) on
-    `devices`: the prompts at once (the replicas take turns at admission, so
-    both decode), then a repeat of the first alone, each DP_GEN greedy
-    tokens; every rank's counts zeroed just before each part and read just
-    after. Gates: every request ends with "length" after DP_GEN tokens; in the concurrent part
-    each rank launched B1a n_layers times per whole prefill it computed and
-    computed one at least, and decoded with an active slot; in the repeat the
-    owner replica alone computed (slot layout: one whole prefill there, B1a
-    n_layers times on its rank and 0 on the other's; paged: a prefix hit in
-    that replica's cache, no whole prefill, B1a 0 times anywhere). With
-    `check` (dp 1's fed ids and decode logits), dp_logits_check after."""
+def weight_share(cfg, pp, dtype_bytes=2):
+    """(bytes of a stage's weights: n_layers / pp layers, the embedding,
+    final norm and head; bytes of a whole replica's), from the shapes."""
+    from ray_tpu_torch.models import llama
+
+    shapes = llama.param_shapes(cfg)
+    per_layer = sum(int(np.prod(s[1:])) for s in shapes["layers"].values())
+    rest = sum(int(np.prod(shapes[k])) for k in shapes if k != "layers")
+    return ((per_layer * (cfg.n_layers // pp) + rest) * dtype_bytes,
+            (per_layer * cfg.n_layers + rest) * dtype_bytes)
+
+
+def mesh_serve(torch, card, devices, prompts, name, engine, check=None, phase="DP",
+               side="dp 2", base="dp 1", **kw):
+    """TorchLLMEngine(LLMConfig(**engine, **kw)) on `devices` (replicas of
+    dp, each of pp stages): the prompts at once (the replicas take turns at
+    admission, so all decode), then a repeat of the first alone, each
+    DP_GEN greedy tokens; every rank's counts zeroed just before each part
+    and read just after. Gates: every request ends with "length" after
+    DP_GEN tokens; in the concurrent part each rank launched B1a
+    n_layers / pp times per whole prefill it computed and computed one at
+    least, and decoded with an active slot; in the repeat every stage of the
+    owner replica computed and no other rank (slot layout: one whole
+    prefill on each of its stages, B1a n_layers / pp times on each and 0
+    elsewhere; paged: a prefix hit on each of its stages in that replica's
+    cache, no whole prefill, B1a 0 times anywhere); under pp each rank's
+    weights are its reckoned share (weight_share). With `check` (the one-rank
+    fed ids and decode logits), mesh_logits_check after."""
     from ray_tpu_torch.llm import LLMConfig, SamplingParams, TorchLLMEngine
 
     greedy = SamplingParams(max_tokens=DP_GEN, temperature=0.0, stop_token_ids=[-1])
     held = torch.cuda.memory_allocated()  # phase 3's weights, in rank 0's process
     t0 = time.perf_counter()
-    eng = TorchLLMEngine(LLMConfig(**DP_ENGINE, **kw), devices=devices)
+    eng = TorchLLMEngine(LLMConfig(**engine, **kw), devices=devices)
     eng.start()
     torch.cuda.synchronize()
     start_s = time.perf_counter() - t0
-    n_layers = eng.model_config.n_layers
+    pp, dp = eng.config.pipeline_parallel_size, eng.config.data_parallel_size
+    model_cfg = eng.model_config
+    stage_layers = model_cfg.n_layers // pp
     backend = "gloo" if len(set(devices)) == 1 else "nccl"
 
     def timed(ids, t):
@@ -4973,20 +5015,22 @@ def dp_serve(torch, card, devices, prompts, name, check=None, **kw):
 
     try:
         eng.rank_counts(reset=True)
-        # ---- the data-parallel path: counts zeroed just before, read just after ----
+        # ---- the multi-rank path: counts zeroed just before, read just after ----
         t_all = time.perf_counter()
         runs, wall = run_together(lambda i: timed(prompts[i], t_all), len(prompts), timeout=300)
         together = eng.rank_counts(reset=True)
         # ---- end ----
         subs = getattr(eng._blocks, "subs", None)
-        hits0 = [sub.hit_tokens for sub in subs] if subs else None
+        blocks = subs or ([eng._blocks] if eng._blocks is not None else None)
+        hits0 = [b.hit_tokens for b in blocks] if blocks else None
         # ---- the repeat: counts zeroed just before, read just after ----
         repeat = timed(prompts[0], time.perf_counter())
         again = eng.rank_counts()
         # ---- end ----
-        hits = [sub.hit_tokens - h for sub, h in zip(subs, hits0)] if subs else None
+        hits = [b.hit_tokens - h for b, h in zip(blocks, hits0)] if blocks else None
         metrics = eng.metrics()
-        errs = dp_logits_check(eng, name, prompts, *check) if check else None
+        errs = (mesh_logits_check(eng, name, prompts, *check, side=side, base=base,
+                                  phase=phase) if check else None)
     finally:
         eng.shutdown()
         del eng
@@ -4995,18 +5039,19 @@ def dp_serve(torch, card, devices, prompts, name, check=None, **kw):
     for r in together:  # rank 0's peak without what its process held before
         r["peak_gib"] = (r.pop("peak_bytes") - (held if r["rank"] == 0 else 0)) / 2**30
         r["decode_tok_s"] = r["tokens"] / wall
-    label = f"[{DP_LABEL[backend]}; {card}]"
+    label = f"[{MESH_LABEL[phase, backend]}; {card}]"
     print(f"  {name}: up in {start_s:.1f} s; " + "; ".join(
         f"{r['prompt_tokens']} tokens TTFT {r['ttft_ms']:.1f} ms, decode "
         f"{r['decode_tok_s']:.2f} tok/s" for r in runs)
         + f"; together {tokens} tokens in {wall:.2f} s = {tokens / wall:.2f} tok/s {label}",
         flush=True)
     for r in together:
-        print(f"    rank {r['rank']} (replica {r['replica']}): {r['prefills']} whole prefills, "
-              f"{r['prefix_prefills']} over a cached prefix, B1a launches "
-              f"{r['flash_launches']}, {r['active_steps']} decode steps with an active slot, "
-              f"{r['tokens']} tokens = {r['decode_tok_s']:.2f} tok/s over the part's wall, "
-              f"peak {r['peak_gib']:.2f} GiB beyond what the process held before {label}",
+        print(f"    rank {r['rank']} (replica {r['replica']}, stage {r['stage']}): "
+              f"{r['prefills']} whole prefills, {r['prefix_prefills']} over a cached prefix, "
+              f"B1a launches {r['flash_launches']}, {r['active_steps']} decode steps with an "
+              f"active slot, {r['tokens']} tokens = {r['decode_tok_s']:.2f} tok/s over the "
+              f"part's wall, weights {r['param_bytes'] / 1e9:.3f} GB, peak "
+              f"{r['peak_gib']:.2f} GiB beyond what the process held before {label}",
               flush=True)
     owner = [r for r in again if r["prefills"] + r["prefix_prefills"]]
     print(f"    repeat of the {repeat['prompt_tokens']}-token prompt alone: TTFT "
@@ -5019,65 +5064,147 @@ def dp_serve(torch, card, devices, prompts, name, check=None, **kw):
     if any(x != ("length", DP_GEN) for x in reasons):
         fails.append(f"(reason, tokens) {reasons}")
     for r in together:
-        if not r["prefills"] or r["flash_launches"] != n_layers * r["prefills"]:
+        if not r["prefills"] or r["flash_launches"] != stage_layers * r["prefills"]:
             fails.append(f"rank {r['rank']}: B1a {r['flash_launches']} for {r['prefills']} "
-                         "whole prefills")
+                         f"whole prefills ({stage_layers} layers)")
         if not r["active_steps"]:
             fails.append(f"rank {r['rank']} decoded no step with an active slot")
-    if len(owner) != 1:
-        fails.append(f"the repeat ran on {len(owner)} ranks")
-    elif subs is None:
-        if owner[0]["prefills"] != 1 or [r["flash_launches"] for r in again] != [
-                n_layers if r is owner[0] else 0 for r in again]:
+    replicas = {r["replica"] for r in owner}
+    if len(replicas) != 1 or len(owner) != len(again) // dp:
+        fails.append(f"the repeat ran on ranks {[r['rank'] for r in owner]}")
+    elif blocks is None:
+        if any(r["prefills"] != 1 for r in owner) or [r["flash_launches"] for r in again] != [
+                stage_layers if r in owner else 0 for r in again]:
             fails.append(f"the repeat's prefill: {again}")
-    elif owner[0]["prefix_prefills"] != 1 or any(r["flash_launches"] for r in again) or \
-            not hits[owner[0]["replica"]] or sum(hits) != hits[owner[0]["replica"]]:
+    elif any(r["prefix_prefills"] != 1 for r in owner) or any(
+            r["flash_launches"] for r in again) or not hits[owner[0]["replica"]] or \
+            sum(hits) != hits[owner[0]["replica"]]:
         fails.append(f"the repeat missed its replica's prefix cache: hits {hits}, {again}")
+    share = None
+    if pp > 1:
+        share = weight_share(model_cfg, pp)
+        print(f"    weights per stage rank {[r['param_bytes'] for r in together]} B, reckoned "
+              f"{share[0]} B of a replica's {share[1]} B", flush=True)
+        if any(r["param_bytes"] != share[0] for r in together):
+            fails.append(f"a stage holds other than its share {share[0]} B: "
+                         f"{[r['param_bytes'] for r in together]}")
     if fails:
-        raise SystemExit(f"phase DP {name}: " + "; ".join(fails))
+        raise SystemExit(f"phase {phase} {name}: " + "; ".join(fails))
     return dict(config=kw, devices=[str(d) for d in devices], backend=backend,
                 start_s=start_s, runs=runs, wall_s=wall, tokens=tokens,
                 decode_tok_s=tokens / wall, ranks=together, repeat=repeat, repeat_ranks=again,
-                repeat_hits=hits, metrics=metrics, logits_errs=errs,
+                repeat_hits=hits, metrics=metrics, logits_errs=errs, weight_share=share,
                 launches=[r["flash_launches"] for r in together],
                 launches_repeat=[r["flash_launches"] for r in again])
 
 
-def dp_path(torch, fa, card, params):
-    """Phase DP: dp 1's greedy ids on phase 3's weights (tp1_greedy, each prompt in
-    a slot of its own), then TorchLLMEngine at data_parallel_size 2 on two ranks
-    sharing cuda:0 over gloo: the slot layout, paged (prefix cache on, fused
-    bursts at the default width) and paged with n-gram speculation (k = 4), each
-    serving the four prompts at once and a repeat (dp_serve); every served
-    request's ids equal dp 1's up to dp 1's first near tie (tp_ids_gate), and
-    the slot and paged engines' teacher-forced logits are within TP_TOL of dp
-    1's at every fed step (dp_logits_check). Where there are two cards, the slot
-    engine runs over NCCL on cuda:0 and cuda:1 too."""
+def serve_reference(torch, params):
+    """The one-rank reference of phases DP and PP on phase 3's weights: the
+    DP_CHARS prompts, each in a slot of its own (tp1_greedy) -> (prompts,
+    prefill logits, decode logits, greedy ids)."""
     from ray_tpu_torch.llm.tokenizer import get_tokenizer
 
-    t_phase = time.perf_counter()
     tok = get_tokenizer("byte")
     prompts = [tok.encode(prompt_text(n))[-(1024 - DP_GEN):] for n in DP_CHARS]
-    first, steps, fed = tp1_greedy(torch, params, prompts, torch.device("cuda:0"))
-    shared = ["cuda:0"] * DP
-    check = (fed, steps)
-    out = {"slot": dp_serve(torch, card, shared, prompts, "slot", check),
-           "paged": dp_serve(torch, card, shared, prompts, "paged", check, **DP_PAGED),
-           "spec": dp_serve(torch, card, shared, prompts, "paged, n-gram k 4", **DP_PAGED,
-                            num_speculative_tokens=SPEC_K)}
-    if torch.cuda.device_count() >= DP:
-        out["slot_nccl"] = dp_serve(torch, card, [f"cuda:{r}" for r in range(DP)], prompts,
-                                    "slot over NCCL")
-    else:
-        print(f"  NCCL across cards: not run ({torch.cuda.device_count()} card)", flush=True)
-    # the repeat is prompt 0 again: its column of dp 1's logits once more
+    return (prompts, *tp1_greedy(torch, params, prompts, torch.device("cuda:0")))
+
+
+def ids_gates(out, reference, side, base, phase):
+    """tp_ids_gate over every engine's requests and repeat (the repeat is
+    prompt 0 again: its column of the reference once more)."""
+    _, first, steps, fed = reference
     first, steps, fed = (np.concatenate([first, first[:1]]),
                          np.concatenate([steps, steps[:, :1]], axis=1), fed + [fed[0]])
     for name, run in out.items():
         run["ids_gate"] = tp_ids_gate(name, run["runs"] + [run["repeat"]], first, steps, fed,
-                                      side="dp 2", base="dp 1", phase="DP")
+                                      side=side, base=base, phase=phase)
+
+
+def dp_path(torch, fa, card, params, reference=None):
+    """Phase DP: dp 1's greedy ids on phase 3's weights (serve_reference, each
+    prompt in a slot of its own), then TorchLLMEngine at data_parallel_size 2
+    on two ranks sharing cuda:0 over gloo: the slot layout, paged (prefix
+    cache on, fused bursts at the default width) and paged with n-gram
+    speculation (k = 4), each serving the four prompts at once and a repeat
+    (mesh_serve); every served request's ids equal dp 1's up to dp 1's first
+    near tie (tp_ids_gate), and the slot and paged engines' teacher-forced
+    logits are within TP_TOL of dp 1's at every fed step (mesh_logits_check).
+    Where there are two cards, the slot engine runs over NCCL on cuda:0 and
+    cuda:1 too."""
+    t_phase = time.perf_counter()
+    reference = reference or serve_reference(torch, params)
+    prompts, _, steps, fed = reference
+    shared = ["cuda:0"] * DP
+    check = (fed, steps)
+
+    def serve(devices, name, check=None, **kw):
+        return mesh_serve(torch, card, devices, prompts, name, DP_ENGINE, check, **kw)
+
+    out = {"slot": serve(shared, "slot", check),
+           "paged": serve(shared, "paged", check, **DP_PAGED),
+           "spec": serve(shared, "paged, n-gram k 4", **DP_PAGED,
+                         num_speculative_tokens=SPEC_K)}
+    if torch.cuda.device_count() >= DP:
+        out["slot_nccl"] = serve([f"cuda:{r}" for r in range(DP)], "slot over NCCL")
+    else:
+        print(f"  NCCL across cards: not run ({torch.cuda.device_count()} card)", flush=True)
+    ids_gates(out, reference, "dp 2", "dp 1", "DP")
     out["wall_s"] = time.perf_counter() - t_phase
     print(f"  phase DP took {out['wall_s']:.1f} s", flush=True)
+    return out
+
+
+# phase PP: pipeline parallelism on one card (A2g). llama3-8b at pp 2 on phase
+# 3's seed: two stages of 16 layers each, holding their layers' weights and
+# KV, share cuda:0 over gloo (and NCCL on cuda:0 and cuda:1 runs too where the
+# machine has two cards); then pp 2 x dp 2, four ranks. The numbers are those
+# of ranks sharing one H100 over gloo: not a pp speed.
+PP = 2
+PP_ENGINE = dict(model_source="llama3-8b", pipeline_parallel_size=PP, max_num_seqs=8,
+                 max_model_len=1024)
+MESH_LABEL = {("DP", "gloo"): "2 replicas sharing one H100 over gloo",
+              ("DP", "nccl"): "2 H100s over NCCL",
+              ("PP", "gloo"): "not a pp speed: ranks share one card over gloo",
+              ("PP", "nccl"): "2 stages on 2 H100s over NCCL"}
+
+
+def pp_path(torch, fa, card, params, reference=None):
+    """Phase PP: pp 1's greedy ids on phase 3's weights (serve_reference),
+    then TorchLLMEngine at pipeline_parallel_size 2 on two ranks sharing
+    cuda:0 over gloo, each holding its 16 layers and their KV: the slot
+    layout, paged (bench_serve's 32-token blocks, prefix cache on) and paged
+    with n-gram speculation (k = 4), then paged at pp 2 x dp 2 on four
+    ranks, each serving the four prompts at once and a repeat (mesh_serve:
+    B1a 16 times per whole prefill on each stage rank of the owning
+    replica, the paged repeat a hit in that replica's cache on both its
+    stages, each stage's weight bytes its share); every served request's ids
+    equal pp 1's up to pp 1's first near tie (tp_ids_gate), and the slot and
+    paged engines' teacher-forced logits are within TP_TOL of pp 1's at every
+    fed step (mesh_logits_check). Where there are two cards, the slot engine
+    runs over NCCL on cuda:0 and cuda:1 too."""
+    t_phase = time.perf_counter()
+    reference = reference or serve_reference(torch, params)
+    prompts, _, steps, fed = reference
+    check = (fed, steps)
+
+    def serve(n, name, check=None, **kw):
+        return mesh_serve(torch, card, ["cuda:0"] * n, prompts, name, PP_ENGINE, check,
+                          phase="PP", side="pp 2", base="pp 1", **kw)
+
+    out = {"slot": serve(PP, "slot", check),
+           "paged": serve(PP, "paged", check, **DP_PAGED),
+           "spec": serve(PP, "paged, n-gram k 4", **DP_PAGED, num_speculative_tokens=SPEC_K),
+           "pp2dp2": serve(PP * DP, "paged, pp 2 x dp 2", **DP_PAGED,
+                           data_parallel_size=DP)}
+    if torch.cuda.device_count() >= PP:
+        out["slot_nccl"] = mesh_serve(torch, card, [f"cuda:{r}" for r in range(PP)], prompts,
+                                      "slot over NCCL", PP_ENGINE, phase="PP", side="pp 2",
+                                      base="pp 1")
+    else:
+        print(f"  NCCL across cards: not run ({torch.cuda.device_count()} card)", flush=True)
+    ids_gates(out, reference, "pp 2", "pp 1", "PP")
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(f"  phase PP took {out['wall_s']:.1f} s", flush=True)
     return out
 
 
@@ -5197,7 +5324,16 @@ def main() -> int:
 
     header(t_start, "[DP] data parallelism: llama3-8b at dp 2 on one card, served in the slot and "
            "paged layouts and with speculation, against dp 1 on phase 3's weights")
-    dp_served = dp_path(torch, fa, card, params)
+    t0 = time.perf_counter()
+    mesh_ref = serve_reference(torch, params)  # dp 1 = pp 1: one rank, the whole model
+    print(f"  the one-rank reference of DP and PP took {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    dp_served = dp_path(torch, fa, card, params, mesh_ref)
+
+    header(t_start, "[PP] pipeline parallelism: llama3-8b at pp 2 (and pp 2 x dp 2) on one card, "
+           "served in the slot and paged layouts and with speculation, against pp 1 on phase "
+           "3's weights")
+    pp_served = pp_path(torch, fa, card, params, mesh_ref)
 
     header(t_start, "[5] paged serving: llama3-8b with bench_serve's paged settings")
     paged_served = paged_path(torch, fa, card, params)
@@ -5301,6 +5437,13 @@ def main() -> int:
                "whole_prefills": [r["prefills"] for r in run["ranks"]],
                "repeat": run["launches_repeat"]}
         for name, run in dp_served.items() if name != "wall_s"}
+    kernels[0]["launches_pp"] = {  # by rank: the four prompts together, then the repeat alone
+        name: {"together": run["launches"],
+               "stages": [r["stage"] for r in run["ranks"]],
+               "replicas": [r["replica"] for r in run["ranks"]],
+               "whole_prefills": [r["prefills"] for r in run["ranks"]],
+               "repeat": run["launches_repeat"]}
+        for name, run in pp_served.items() if name != "wall_s"}
     kernels[0]["design"] = (
         "bf16: a producer warpgroup keeps a 3-stage TMA ring of 128-row K/V tiles "
         "(mbarrier full/empty); two consumer warpgroups of 64 q rows run S = QK^T and "
@@ -5325,7 +5468,7 @@ def main() -> int:
                   build_s=build_s, sass=sass, checks=checks, backward_checks=bwd_checks,
                   timings=timings, training_timings=train_timings, sdpa_backward=sdpa_bwd,
                   served=served, numerics=numerics, tensor_parallel=tp_served,
-                  data_parallel=dp_served,
+                  data_parallel=dp_served, pipeline_parallel=pp_served,
                   paged=paged_served,
                   int8=quant_served, spec=spec_served, pd=pd_served,
                   trained=trained_runs, train_numerics=train_check,

@@ -9,7 +9,9 @@ decoding and int8 weights (W8A16), for dense and mixture-of-experts models
 ``moe_capacity_factor``), from a registry name, a ModelConfig or a local
 HF-layout checkpoint directory (models/checkpoint.py), from one or, with
 ``data_parallel_size`` = N, N replicas, each with its own slots and KV (a MoE
-model at tensor_parallel_size 1 only). The rest raises NotImplementedError naming
+model at tensor_parallel_size 1 only), each replica of one or, with
+``pipeline_parallel_size`` = P (a dense model), P stages, each holding
+n_layers / P layers and their KV. The rest raises NotImplementedError naming
 its ROADMAP item at construction. The JAX engine's checks of the paged,
 chunked, speculative and quantization settings (ray_tpu/llm/engine.py:283-307)
 run here, at construction, before any weight is built, with the same errors.
@@ -117,6 +119,8 @@ class LLMConfig:
     # slots and (paged) its own num_kv_blocks / N blocks and prefix cache
     data_parallel_size: int = 1
     expert_parallel_size: int = 1
+    # stages of each replica, each holding n_layers / N layers and their KV;
+    # a decode step runs the replica's slots through them in N microbatches
     pipeline_parallel_size: int = 1
     tokenizer: str = "byte"  # "byte" | "hf:<name-or-path>"
     accelerator_type: Optional[str] = None
@@ -141,14 +145,15 @@ class LLMConfig:
                 "'ngram' (prompt lookup) is implemented")
         if self.quantization and self.quantization != "int8":
             raise ValueError(f"unknown quantization {self.quantization!r} (supported: int8)")
-        for name, item in (("expert_parallel_size", "A6"), ("pipeline_parallel_size", "A2g")):
-            if getattr(self, name) != 1:
-                raise NotImplementedError(f"{name} > 1: ROADMAP {item}")
+        if self.expert_parallel_size != 1:
+            raise NotImplementedError("expert_parallel_size > 1: ROADMAP A6")
         if self.tensor_parallel_size > 1:
             self._check_tensor_parallel()
         dp = self.data_parallel_size
         if dp < 1:
             raise ValueError("data_parallel_size must be >= 1")
+        if self.pipeline_parallel_size > 1:
+            self._check_pipeline_parallel()
         # the JAX engine's words (ray_tpu/llm/engine.py:270-281)
         if self.max_num_seqs % dp:
             raise ValueError("max_num_seqs must be divisible by data_parallel_size")
@@ -179,6 +184,23 @@ class LLMConfig:
             if getattr(cfg, field) % tp:
                 raise ValueError(f"{field} ({getattr(cfg, field)}) is not divisible by "
                                  f"tensor_parallel_size ({tp})")
+
+    def _check_pipeline_parallel(self) -> None:
+        """pp > 1 serves a dense model with scanned layers, n_layers dividing
+        over the stages and each replica's slots over the microbatches (the
+        JAX engine's checks and words, ray_tpu/llm/engine.py:248-257)."""
+        pp, cfg = self.pipeline_parallel_size, self.resolve_model_config()
+        if self.max_num_seqs % (pp * self.data_parallel_size):
+            raise ValueError("max_num_seqs must divide by pp*dp (slots shard over dp "
+                             "replicas, then microbatch over pp stages)")
+        if cfg.n_layers % pp:
+            raise ValueError("n_layers must divide by pipeline_parallel_size")
+        if not cfg.scan_layers:
+            raise ValueError("pipeline_parallel_size > 1 requires scan_layers")
+        if cfg.n_experts > 0:
+            raise NotImplementedError(
+                "pipeline_parallel_size > 1 with a mixture-of-experts model (its experts "
+                "would route each microbatch's tokens as one group): ROADMAP A6")
 
     def kv_pool_blocks(self) -> int:
         """Blocks in the paged pool: num_kv_blocks, else the slot layout's

@@ -1,5 +1,6 @@
 """LLMEngine ABC + TorchLLMEngine: continuous batching on one CUDA device or
-a mesh of data- and tensor-parallel ranks (port of ray_tpu/llm/engine.py, slot and paged layouts).
+a mesh of pipeline-, data- and tensor-parallel ranks (port of
+ray_tpu/llm/engine.py, slot and paged layouts).
 
 A scheduler thread (1) admits waiting requests into free cache slots with a
 whole-prompt prefill padded to a bucket, or a chunked one, (2) advances every
@@ -35,18 +36,18 @@ admission, in the loop thread, and decodes from it. The KV travels on the
 host path, as the JAX engine's does when its device plane is down; the
 device-plane handoff (``kv_handle`` results, paged streaming) is ROADMAP A10.
 ``metrics()`` has every key of the JAX engine's; its Prometheus export and
-the request spans are ROADMAP A11, as is pipeline parallelism's A6.
+the request spans are ROADMAP A11.
 
 Every device call goes through ``_run(op, *args)`` on the engine's
-``tp_worker.ShardRunner``, with host arguments. With data_parallel_size ×
-tensor_parallel_size = N > 1 the engine is rank 0 of an N-rank mesh over
-``devices`` (cuda:0..N-1 by default; gloo when ranks share a card or run on
-the CPU): ``start()`` spawns N - 1 followers, ``_run`` announces each call to
+``tp_worker.ShardRunner``, with host arguments. With pipeline_parallel_size ×
+data_parallel_size × tensor_parallel_size = N > 1 the engine is rank 0 of an
+N-rank mesh over ``devices`` (cuda:0..N-1 by default; gloo when ranks share a
+card or run on the CPU): ``start()`` spawns N - 1 followers, ``_run`` announces each call to
 them first, and ``shutdown()`` stops, joins and, past a timeout, kills them.
 A follower's death or exception, or any failed call on the mesh, finishes
 the in-flight requests with "error" (within the group timeout), fails every
-later one, and makes ``health_error()`` say why. P/D under tp > 1 is ROADMAP
-A6.
+later one, and makes ``health_error()`` say why. P/D under tp > 1 or pp > 1
+is ROADMAP A6.
 
 Data parallelism (data_parallel_size = D > 1): D replicas, each with
 max_num_seqs / D slots of the one scheduler; with kv_layout="paged" each
@@ -56,6 +57,12 @@ manager's slot-scoped forms where pool locality matters, so dp needs no
 branch here beyond admission, which takes the replica with the most free
 blocks first, and preemption, which picks its victim in the growing slot's
 pool.
+
+Pipeline parallelism (pipeline_parallel_size = P > 1): each replica is P
+stages of n_layers / P layers and their KV (tp_worker.py); the scheduler is
+the same. Decode keeps per-step scheduling, as in the JAX engine: a fused
+burst width, auto or fixed, is downgraded to 1 at start with one INFO line,
+and speculation runs one verify window per step.
 """
 from __future__ import annotations
 
@@ -149,23 +156,27 @@ class TorchLLMEngine(LLMEngine):
     int8 ``QTensor`` leaves in `params` (an engine's quantized weights, or a
     bridged int8 tree) are moved to the device as they are.
     `device` defaults to CUDA and raises when there is none; pass "cpu" for
-    the plain path. With N = data_parallel_size × tensor_parallel_size > 1,
-    `devices` names rank r's device for each of the N ranks (this process is
-    rank 0; rank r is replica r // tensor_parallel_size); it defaults to N
-    CPU ranks when `device` is "cpu", else to cuda:0..N-1."""
+    the plain path. With N = pipeline_parallel_size × data_parallel_size ×
+    tensor_parallel_size > 1, `devices` names rank r's device for each of the
+    N ranks (this process is rank 0; rank r is stage r // (dp × tp) of
+    replica r // tp % dp); it defaults to N CPU ranks when `device` is
+    "cpu", else to cuda:0..N-1."""
 
     def __init__(self, config: LLMConfig, params=None, device=None, devices=None):
         self.config = config
         self.model_config = config.resolve_model_config()
         self.tokenizer = get_tokenizer(config.resolve_tokenizer_name())
-        tp, dp = config.tensor_parallel_size, config.data_parallel_size
-        if devices is None and tp * dp > 1:
+        pp, tp, dp = (config.pipeline_parallel_size, config.tensor_parallel_size,
+                      config.data_parallel_size)
+        n = pp * dp * tp
+        if devices is None and n > 1:
             cpu = device is not None and torch.device(device).type == "cpu"
-            devices = ["cpu"] * (tp * dp) if cpu else [f"cuda:{r}" for r in range(tp * dp)]
+            devices = ["cpu"] * n if cpu else [f"cuda:{r}" for r in range(n)]
         if devices is not None:
-            if len(devices) != tp * dp:
-                raise ValueError(f"{len(devices)} devices for tensor_parallel_size {tp} × "
-                                 f"data_parallel_size {dp}")
+            if len(devices) != n:
+                stages = f"pipeline_parallel_size {pp} × " if pp > 1 else ""
+                raise ValueError(f"{len(devices)} devices for {stages}tensor_parallel_size "
+                                 f"{tp} × data_parallel_size {dp}")
             devices = [resolve_device(d) for d in devices]
             device = devices[0]
         self.device = resolve_device(device)
@@ -227,11 +238,19 @@ class TorchLLMEngine(LLMEngine):
             k_cfg = c.resolve_decode_steps()
             self._fused_auto = k_cfg == 0
             self._fused_fixed = 1 if self._fused_auto else _pow2_floor(k_cfg)
+            if c.pipeline_parallel_size > 1 and (self._fused_auto or self._fused_fixed > 1):
+                # pp decode keeps per-step scheduling (ray_tpu/llm/engine.py:258-269)
+                LOGGER.info(
+                    "llm.engine model=%s: pipeline_parallel_size=%d keeps per-step decode "
+                    "scheduling; fused multi-step decode (num_decode_steps=%s) downgraded to 1",
+                    c.model_id, c.pipeline_parallel_size,
+                    "auto" if self._fused_auto else self._fused_fixed)
+                self._fused_auto, self._fused_fixed = False, 1
             if c.quantization and c.quantization != "int8":
                 # before any checkpoint byte is read (ray_tpu/llm/engine.py:303)
                 raise ValueError(f"unknown quantization {c.quantization!r} (supported: int8)")
             mesh = None
-            if c.data_parallel_size * c.tensor_parallel_size > 1:
+            if c.pipeline_parallel_size * c.data_parallel_size * c.tensor_parallel_size > 1:
                 if self.device.type == "cuda":
                     from ray_tpu_torch.ops import _build
 
@@ -472,7 +491,7 @@ class TorchLLMEngine(LLMEngine):
         "k", "v"} and "first_text" when the first token renders alone (not a
         stop token, not a partial UTF-8 codepoint). Every result takes the
         host path, so `force_host` changes nothing here."""
-        self._refuse_pd_under_tp()
+        self._refuse_pd_on_a_mesh()
         self.start()
         prompt_ids = self._encode_prompt(prompt, params)
         k, v, last_logits = self._run_local("prefill_kv", prompt_ids)
@@ -507,7 +526,7 @@ class TorchLLMEngine(LLMEngine):
         call, not at the first next(), for a device-plane handle."""
         if "kv_handle" in prefill_result:
             raise NotImplementedError("device-plane KV handoff: ROADMAP A10")
-        self._refuse_pd_under_tp()
+        self._refuse_pd_on_a_mesh()
         self.start()
         self._ensure_decode_started()
         return self._submit(_Request(
@@ -515,11 +534,16 @@ class TorchLLMEngine(LLMEngine):
             prefill_kv=(prefill_result["k"], prefill_result["v"],
                         int(prefill_result["first_token"]))))
 
-    def _refuse_pd_under_tp(self) -> None:
-        if self.config.tensor_parallel_size > 1:
-            raise NotImplementedError(
-                "P/D (prefill_only / generate_from_prefill) under tensor parallelism: "
-                "ROADMAP A6")
+    def _refuse_pd_on_a_mesh(self) -> None:
+        """P/D is not served under tensor or pipeline parallelism (its KV
+        would leave and arrive in shards or stages): ROADMAP A6 item 2."""
+        c = self.config
+        for size, what in ((c.tensor_parallel_size, "tensor"),
+                           (c.pipeline_parallel_size, "pipeline")):
+            if size > 1:
+                raise NotImplementedError(
+                    f"P/D (prefill_only / generate_from_prefill) under {what} parallelism: "
+                    "ROADMAP A6")
 
     def generate_sync(self, prompt, params: SamplingParams) -> RequestOutput:
         """Collect the full generation into one RequestOutput."""

@@ -30,6 +30,14 @@ INFER_RULES) and a cache of its kv heads (``init_state(mesh=)``, the JAX
 package's CACHE_SPEC over "tp"), and every rank gets the whole logits (see
 models/llama.py), so sampling with equally seeded generators stays in step
 across ranks.
+
+Pipeline parallelism (``pipeline_parallel_size`` = P, a mesh whose "pp" axis
+holds P stages): each stage holds n_layers / P layers
+(``infer_rules_for_mesh`` cuts the stacked "layer" axis over "pp") and their
+cache (``init_state(mesh=)``, the JAX package's CACHE_SPEC_PP). A prefill
+runs stage by stage (models/llama.py). A batched call runs the replica's
+slots through the stages in P microbatches (``_pp_schedule``; see the
+pipeline section below), and every rank of the replica gets the same logits.
 """
 from __future__ import annotations
 
@@ -42,8 +50,10 @@ from ray_tpu_torch.device import resolve_device
 from ray_tpu_torch.models import llama
 from ray_tpu_torch.models.config import ModelConfig
 from ray_tpu_torch.ops.quant import as_weight
+from ray_tpu_torch.parallel import pipeline
 from ray_tpu_torch.parallel.mesh import axis_index, axis_size
-from ray_tpu_torch.parallel.sharding import INFER_RULES, all_gather, all_reduce, shard_pytree
+from ray_tpu_torch.parallel.sharding import (INFER_RULES, AxisRules, all_gather, all_reduce,
+                                             shard_pytree)
 
 from . import sampling
 
@@ -59,13 +69,14 @@ class DecodeState(NamedTuple):
 def init_state(cfg: ModelConfig, slots: int, max_len: int, device=None,
                dtype: Optional[torch.dtype] = None, mesh=None) -> DecodeState:
     """A zeroed slot cache; under tp > 1 it holds this rank's kv heads, under
-    dp > 1 this replica's slots/dp slots (the JAX package's CACHE_SPEC)."""
+    dp > 1 this replica's slots/dp slots (the JAX package's CACHE_SPEC), on a
+    pipeline stage its n_layers / pp layers (CACHE_SPEC_PP)."""
     dev = resolve_device(device)
     dp = axis_size(mesh, "dp")
     if slots % dp:
         raise ValueError("max_num_seqs must be divisible by data_parallel_size")
-    shape = (cfg.n_layers, slots // dp, max_len, cfg.n_kv_heads // axis_size(mesh, "tp"),
-             cfg.head_dim)
+    shape = (cfg.n_layers // axis_size(mesh, "pp"), slots // dp, max_len,
+             cfg.n_kv_heads // axis_size(mesh, "tp"), cfg.head_dim)
     dtype = dtype or cfg.activation_dtype
     return DecodeState(
         k=torch.zeros(shape, dtype=dtype, device=dev),
@@ -74,10 +85,20 @@ def init_state(cfg: ModelConfig, slots: int, max_len: int, device=None,
     )
 
 
+def infer_rules_for_mesh(mesh) -> AxisRules:
+    """INFER_RULES, plus the stacked "layer" axis over "pp" when the mesh
+    has pipeline stages (ray_tpu/llm/model_runner.py:65-70): a stage holds
+    its layers, and the embedding, final norm and head stay whole on every
+    stage."""
+    if axis_size(mesh, "pp") > 1:
+        return AxisRules({**INFER_RULES.rules, "layer": "pp"})
+    return INFER_RULES
+
+
 def shard_params(params, cfg: ModelConfig, mesh):
     """This rank's shard of a whole parameter dict (its own copies)."""
     llama.check_tensor_parallel(cfg, mesh)
-    return shard_pytree(params, llama.param_axes(cfg), mesh, INFER_RULES)
+    return shard_pytree(params, llama.param_axes(cfg), mesh, infer_rules_for_mesh(mesh))
 
 
 # ------------------------------------------------------------------------- prefill
@@ -238,7 +259,17 @@ def _slot_rw(ck, cv, writes):
     return cache_rw
 
 
-def _forward_window(params, window, cfg: ModelConfig, lengths, layer_rw, active, mesh=None):
+def _window_layers(params, x, cfg: ModelConfig, pos, layer_rw, token_mask, mesh=None):
+    """This rank's layers (all of them, or a pipeline stage's) over the
+    window's hidden states x [S,W,D] at positions pos [S,W]."""
+    for i in range(llama.local_layers(params)):
+        x = _layer_core(x, llama.layer_params(params, i), cfg, pos, layer_rw(i), token_mask,
+                        mesh)
+    return x
+
+
+def _forward_window(params, window, cfg: ModelConfig, lengths, layer_rw, active, mesh=None,
+                    layers_pass=None):
     """The model over a window of tokens [S,W] per slot in any cache layout
     (layer_rw(i) is layer i's cache adapter) -> logits [S,W,vocab] f32.
     Lengths are not advanced. A draft copied from the prompt may hold an
@@ -246,15 +277,18 @@ def _forward_window(params, window, cfg: ModelConfig, lengths, layer_rw, active,
     greedy accept then rejects it (an argmax is always in the vocabulary).
     An inactive slot's window claims no MoE expert capacity (JAX masks a
     decode step by `active` and a verify window by `active` repeated W
-    times, not by the draft length)."""
-    x = llama._embed_lookup(params["embed"], window, cfg.activation_dtype, mesh)  # [S,W,D]
-    pos = _window_positions(lengths, window.shape[1])
-    token_mask = None
-    if cfg.n_experts > 0:
-        token_mask = active.float()[:, None].expand(window.shape)
-    for i in range(cfg.n_layers):
-        x = _layer_core(x, llama.layer_params(params, i), cfg, pos, layer_rw(i), token_mask,
-                        mesh)
+    times, not by the draft length). `layers_pass(window)` -> x [S,W,D]
+    replaces the embedding and the layer loop (the pipeline schedule runs
+    its own: _pp_layers)."""
+    if layers_pass is not None:
+        x = layers_pass(window)
+    else:
+        x = llama._embed_lookup(params["embed"], window, cfg.activation_dtype, mesh)  # [S,W,D]
+        token_mask = None
+        if cfg.n_experts > 0:
+            token_mask = active.float()[:, None].expand(window.shape)
+        x = _window_layers(params, x, cfg, _window_positions(lengths, window.shape[1]),
+                           layer_rw, token_mask, mesh)
     x = llama.rms_norm(x, params["final_norm"], cfg.norm_eps)
     return llama.logits_of(x, params, cfg, mesh)
 
@@ -272,19 +306,22 @@ def decode_step(
 
     Inactive slots still flow through the matmuls, and their cache write lands
     at lengths[s] of a slot whose contents the next prefill overwrites; their
-    length does not advance. Cache and lengths are updated in place."""
+    length does not advance. Cache and lengths are updated in place. On a
+    pipeline stage the layers run through the stages (_pp_slot_layers)."""
     writes = _slot_writes(state.lengths, 1, state.k.shape[2])
     logits = _decode_layers(params, tokens, active, cfg, state.lengths,
-                            lambda i: _slot_rw(state.k[i], state.v[i], writes), mesh)
+                            lambda i: _slot_rw(state.k[i], state.v[i], writes), mesh,
+                            _pp_slot_layers(params, state, cfg, mesh))
     return state, logits
 
 
-def _decode_layers(params, tokens, active, cfg: ModelConfig, lengths, layer_rw, mesh=None):
+def _decode_layers(params, tokens, active, cfg: ModelConfig, lengths, layer_rw, mesh=None,
+                   layers_pass=None):
     """A decode step's model pass over any cache layout: layer_rw(i) is layer
-    i's cache adapter. Advances the active slots' lengths in place; returns
-    logits [slots, vocab] f32."""
+    i's cache adapter (or `layers_pass`, see _forward_window). Advances the
+    active slots' lengths in place; returns logits [slots, vocab] f32."""
     logits = _forward_window(params, tokens[:, None], cfg, lengths, layer_rw, active,
-                             mesh)[:, 0]
+                             mesh, layers_pass)[:, 0]
     lengths.add_(active.to(lengths.dtype))
     return logits
 
@@ -354,12 +391,15 @@ def spec_accept(window, greedy, draft_len, active, temperature, top_p, top_k, lo
 
 
 def spec_driver(params, window, draft_len, active, cfg: ModelConfig, lengths, layer_rw,
-                temperature, top_p, top_k, generator=None, mesh=None):
+                temperature, top_p, top_k, generator=None, mesh=None, layers_pass=None):
     """The speculative verify pipeline shared by both layouts (embed ->
     layers -> norm -> head -> accept); layer_rw(i) is layer i's window
-    adapter. Advances lengths by n_acc + 1 for active slots in place.
+    adapter, or `layers_pass(window)` -> x replaces the embedding and the
+    layer loop (the pipeline schedule's seam, as in JAX). Advances lengths
+    by n_acc + 1 for active slots in place.
     -> (tokens [S,W], n_acc [S], logits [S,W,vocab] f32)."""
-    logits = _forward_window(params, window, cfg, lengths, layer_rw, active, mesh)
+    logits = _forward_window(params, window, cfg, lengths, layer_rw, active, mesh,
+                             layers_pass)
     greedy = torch.argmax(logits, dim=-1)
     greedy, n_acc, advance = spec_accept(window, greedy, draft_len, active, temperature,
                                          top_p, top_k, logits[:, 0], generator)
@@ -390,12 +430,13 @@ def spec_verify_step(
     [S,W,vocab] f32 last with return_logits: out_tokens[s, :n+1] are this
     step's emitted tokens (n accepted drafts + 1 bonus/correction); lengths
     advance by n+1 for active slots, in place. Writes past max_len are
-    dropped."""
+    dropped. On a pipeline stage the window is the microbatch payload
+    through the stages (_pp_slot_layers)."""
     writes = _slot_writes(state.lengths, window.shape[1], state.k.shape[2])
     toks, n_acc, logits = spec_driver(
         params, window, draft_len, active, cfg, state.lengths,
         lambda i: _slot_rw(state.k[i], state.v[i], writes), temperature, top_p, top_k,
-        generator, mesh)
+        generator, mesh, _pp_slot_layers(params, state, cfg, mesh))
     return (state, toks, n_acc, logits) if return_logits else (state, toks, n_acc)
 
 
@@ -571,11 +612,109 @@ def _idle_multi(m: int, k: int):
     return idle
 
 
+# ------------------------------------------------------------ pipeline parallelism
+#
+# pipeline_parallel_size = P (ray_tpu/llm/model_runner.py:571-716): a batched
+# call splits the replica's slots into P microbatches of slots / (P * dp).
+# Stage s takes them in turn: from the embedding (s = 0) or from stage s - 1,
+# through its layers on the microbatch's cache rows, on to stage s + 1
+# (parallel/pipeline.py); the last stage's outputs reach every stage of the
+# replica by one broadcast over "pp", and every rank runs the final norm and
+# the head on them. JAX's tick loop runs M + P - 1 ticks on every stage, and
+# a stage's fill and drain ticks compute on a clipped microbatch whose writes
+# it discards (slot layout) or sends to the scratch block (paged). A process
+# per stage waits for its input instead: no bubble tick is computed, and the
+# cache holds the same values. A mixture-of-experts model is not served
+# under pp (its experts would route a microbatch's tokens as one group):
+# ROADMAP A6.
+
+def _pp_schedule(x_of, step_mb, shape, dtype, device, mesh) -> torch.Tensor:
+    """The replica's rows through the stages in P microbatches:
+    x_of(rows) -> stage 0's input [smb, W, D] (rows a slice of the replica's
+    slots), step_mb(h, rows) -> this stage's output for those rows. Returns
+    the last stage's outputs [S, W, D] (`shape`) on every stage."""
+    pp, stage = axis_size(mesh, "pp"), axis_index(mesh, "pp")
+    if shape[0] % pp:  # LLMConfig refuses such an engine; a direct call is refused here
+        raise ValueError(f"a replica's {shape[0]} slots do not split into {pp} microbatches")
+    smb = shape[0] // pp
+    outs = []
+    for j in range(pp):
+        rows = slice(j * smb, (j + 1) * smb)
+        if stage == 0:
+            h = x_of(rows)
+        else:
+            h = pipeline.recv_from_prev((smb,) + tuple(shape[1:]), dtype, device, mesh)
+        h = step_mb(h, rows)
+        if stage < pp - 1:
+            pipeline.send_to_next(h, mesh)
+        else:
+            outs.append(h)
+    out = torch.cat(outs) if stage == pp - 1 else torch.empty(shape, dtype=dtype,
+                                                             device=device)
+    return pipeline.from_last_stage(out, mesh)
+
+
+def _pp_layers(params, window, cfg: ModelConfig, lengths, mb_rw, mesh):
+    """The layers_pass of a pipeline stage for a window [S,W] of the
+    replica's slots: mb_rw(rows)(i) is local layer i's cache adapter for a
+    microbatch's rows -> the last stage's hidden states [S,W,D]."""
+    if cfg.n_experts > 0:
+        raise NotImplementedError("a mixture-of-experts model under pipeline parallelism: "
+                                  "ROADMAP A6")
+    s, wlen = window.shape
+    pos = _window_positions(lengths, wlen)
+    return _pp_schedule(
+        lambda rows: llama._embed_lookup(params["embed"], window[rows], cfg.activation_dtype,
+                                         mesh),
+        lambda h, rows: _window_layers(params, h, cfg, pos[rows], mb_rw(rows), None, mesh),
+        (s, wlen, cfg.d_model), cfg.activation_dtype, window.device, mesh)
+
+
+def _pp_slot_layers(params, state: DecodeState, cfg: ModelConfig, mesh):
+    """The slot layout's layers_pass through the schedule (JAX's
+    _pp_slot_layers): a microbatch writes its own slots' rows of this
+    stage's cache. None without pipeline stages."""
+    if axis_size(mesh, "pp") == 1:
+        return None
+
+    def layers_pass(window):
+        wlen, max_len = window.shape[1], state.k.shape[2]
+
+        def mb_rw(rows):
+            writes = _slot_writes(state.lengths[rows], wlen, max_len)
+            return lambda i: _slot_rw(state.k[i, rows], state.v[i, rows], writes)
+
+        return _pp_layers(params, window, cfg, state.lengths, mb_rw, mesh)
+
+    return layers_pass
+
+
+@torch.no_grad()
+def decode_step_pp(params, state: DecodeState, tokens, active, cfg: ModelConfig, mesh):
+    """One decode step of every slot [S] with the layers and the cache
+    split over "pp" stages, each replica's slots microbatched through them
+    (ray_tpu/llm/model_runner.py:680-716) -> (state, logits [S, vocab] of
+    every replica, on every rank): the engine's call, SlotOps.decode_step."""
+    return SlotOps(cfg, mesh).decode_step(params, state, tokens, active)
+
+
+@torch.no_grad()
+def spec_verify_step_pp(params, state: DecodeState, window, draft_len, active,
+                        cfg: ModelConfig, temperature, top_p, top_k, generator=None, mesh=None):
+    """Speculative verify through the stages (ray_tpu/llm/model_runner.py:
+    394-418): the window [S, W] is the microbatch payload -> (state, tokens
+    [S, W], n_accepted [S]) of every replica: the engine's call,
+    SlotOps.spec_verify."""
+    return SlotOps(cfg, mesh).spec_verify(params, state, window, draft_len, active,
+                                          temperature, top_p, top_k, generator)
+
+
 class SlotOps:
     """Engine-facing batched calls of the slot layout for one cache (the
     paged layout's are paged.PagedOps): the functions above on this rank's
-    shard, and under dp > 1 on this replica's slots, their per-slot outputs
-    gathered over "dp" (over_replicas)."""
+    shard (through the stages on a pipeline stage), and under dp > 1 on this
+    replica's slots, their per-slot outputs gathered over "dp"
+    (over_replicas)."""
 
     def __init__(self, cfg: ModelConfig, mesh=None):
         self.cfg = cfg

@@ -24,8 +24,10 @@ POOL_SPEC over "tp") and every device function takes the ``mesh``, as the
 slot layout's do; the block manager stays on the host of rank 0. Under
 data parallelism each replica has a pool of its own, and the host side
 _ShardedBlockManager one block manager and prefix cache per replica (see
-the dp section below). The pipelined variants are a later slice (ROADMAP
-A2g).
+the dp section below). Under pipeline parallelism each stage holds its
+layers' slice of the pool (POOL_SPEC_PP, with dp POOL_SPEC_PP_DP), and the
+tables and lengths are the same on every stage of a replica (see the pp
+section below).
 """
 from __future__ import annotations
 
@@ -41,7 +43,7 @@ from ray_tpu_torch.models.config import ModelConfig
 from ray_tpu_torch.parallel.mesh import axis_index, axis_size
 
 from .model_runner import (_burst, _decode_layers, _idle_burst, _idle_multi, _idle_verify,
-                           _window_positions, over_replicas, prompt_mask,
+                           _pp_layers, _window_positions, over_replicas, prompt_mask,
                            propose_ngram_device, slot_replica, spec_driver, spec_multi_impl)
 
 
@@ -69,14 +71,16 @@ def init_paged_state(cfg: ModelConfig, slots: int, max_len: int, num_blocks: int
     `slots` are the totals over the replicas: this rank holds its replica's
     partition, num_blocks/dp blocks plus a scratch block of its own, and the
     tables and lengths of its slots/dp slots (the JAX package's
-    POOL_SPEC_DP, TABLE_SPEC_DP and LENGTHS_SPEC_DP)."""
+    POOL_SPEC_DP, TABLE_SPEC_DP and LENGTHS_SPEC_DP). On a pipeline stage
+    the pool holds the stage's n_layers / pp layers (POOL_SPEC_PP,
+    POOL_SPEC_PP_DP)."""
     dev = resolve_device(device)
     dtype = dtype or cfg.activation_dtype
     dp = axis_size(mesh, "dp")
     if num_blocks % dp or slots % dp:
         raise ValueError(f"num_blocks ({num_blocks}) and slots ({slots}) must divide by "
                          f"data_parallel_size ({dp})")
-    shape = (cfg.n_layers, num_blocks // dp + 1, block_size,
+    shape = (cfg.n_layers // axis_size(mesh, "pp"), num_blocks // dp + 1, block_size,
              cfg.n_kv_heads // axis_size(mesh, "tp"), cfg.head_dim)
     return PagedState(
         k=torch.zeros(shape, dtype=dtype, device=dev),
@@ -497,10 +501,12 @@ def decode_step_paged(
     mesh=None,
 ) -> Tuple[PagedState, torch.Tensor]:
     """One decode step for every slot against the paged pool -> (state,
-    logits [slots, vocab] f32); pool and lengths updated in place."""
+    logits [slots, vocab] f32); pool and lengths updated in place. On a
+    pipeline stage the layers run through the stages (_pp_paged_layers)."""
     write_block, write_off = _write_positions(state, active, 1)
     logits = _decode_layers(params, tokens, active, cfg, state.lengths, lambda i: _paged_rw(
-        state.k[i], state.v[i], state.block_tables, write_block, write_off), mesh)
+        state.k[i], state.v[i], state.block_tables, write_block, write_off), mesh,
+        _pp_paged_layers(params, state, active, cfg, mesh))
     return state, logits
 
 
@@ -547,13 +553,15 @@ def spec_verify_step_paged(
     """Speculative verify against the paged pool (see
     model_runner.spec_verify_step for the contract). The engine grows every
     active slot's table by the window first, so each window position below
-    max_len maps to a block the slot owns."""
+    max_len maps to a block the slot owns. On a pipeline stage the window
+    is the microbatch payload through the stages (_pp_paged_layers)."""
     write_block, write_off = _write_positions(state, active, window.shape[1])
     toks, n_acc, logits = spec_driver(
         params, window, draft_len, active, cfg, state.lengths,
         lambda i: _paged_rw(state.k[i], state.v[i], state.block_tables, write_block,
                             write_off),
-        temperature, top_p, top_k, generator, mesh)
+        temperature, top_p, top_k, generator, mesh,
+        _pp_paged_layers(params, state, active, cfg, mesh))
     return (state, toks, n_acc, logits) if return_logits else (state, toks, n_acc)
 
 
@@ -607,6 +615,8 @@ def spec_multi_paged(
 # cached blocks on the owner alone, with no psum (JAX's warm path psums them
 # because its suffix prefill runs in auto mode over the whole mesh).
 # Owner-only compute gives the owner the same result without the collective.
+# At dp 1 a batched _dp function is the plain one on every slot, so PagedOps
+# makes every batched call through them.
 
 def _local_slot(mesh, slot: int, slots_per: int) -> int:
     """`slot`'s index among this rank's slots; its replica must own it."""
@@ -707,11 +717,69 @@ def spec_multi_paged_dp(params, state: PagedState, hist, hlen, active, cfg: Mode
     return (state, *out)
 
 
+# ------------------------------------------------- pipeline-parallel (pp) composition
+#
+# kv_layout="paged" with pipeline_parallel_size > 1 (ray_tpu/llm/paged.py:
+# 597-735): each stage holds its layers' slice of the pool (and with dp its
+# replica's partition of it); block ids are layer-independent, so the tables
+# and lengths are the same on every stage of a replica. A batched call runs
+# the replica's slots through the stages in microbatches
+# (model_runner._pp_schedule), a microbatch reading and writing through its
+# own rows of the tables; an inactive slot writes the scratch block, as at
+# pp 1. A call for one slot (install_prefill, install_with_prefix,
+# append_block, prefill_suffix_from_state) runs on every stage of the
+# owning replica: each installs, or on the prefix cache's warm path reads,
+# its own layers' blocks, and the prefill itself runs stage by stage
+# (models/llama.py).
+
+def _pp_paged_layers(params, state: PagedState, active, cfg: ModelConfig, mesh):
+    """The paged layout's layers_pass through the schedule (JAX's
+    _pp_paged_layers). None without pipeline stages."""
+    if axis_size(mesh, "pp") == 1:
+        return None
+
+    def layers_pass(window):
+        wlen = window.shape[1]
+
+        def mb_rw(rows):
+            mb = state._replace(block_tables=state.block_tables[rows],
+                                lengths=state.lengths[rows])
+            write_block, write_off = _write_positions(mb, active[rows], wlen)
+            return lambda i: _paged_rw(state.k[i], state.v[i], mb.block_tables, write_block,
+                                       write_off)
+
+        return _pp_layers(params, window, cfg, state.lengths, mb_rw, mesh)
+
+    return layers_pass
+
+
+@torch.no_grad()
+def decode_step_paged_pp(params, state: PagedState, tokens, active, cfg: ModelConfig, mesh):
+    """Paged decode of every slot [S] with the layers and the pool split
+    over "pp" stages (ray_tpu/llm/paged.py:637-667) -> (state, logits
+    [S, vocab] of every replica, on every rank): decode_step_paged_dp, whose
+    replica-local step runs the stages."""
+    return decode_step_paged_dp(params, state, tokens, active, cfg, mesh)
+
+
+@torch.no_grad()
+def spec_verify_step_paged_pp(params, state: PagedState, window, draft_len, active,
+                              cfg: ModelConfig, temperature, top_p, top_k, generator=None,
+                              mesh=None):
+    """Paged speculative verify through the stages (ray_tpu/llm/paged.py:
+    707-735) -> (state, tokens [S, W], n_accepted [S]) of every replica:
+    spec_verify_step_paged_dp, whose replica-local verify runs the stages."""
+    return spec_verify_step_paged_dp(params, state, window, draft_len, active, cfg,
+                                     temperature, top_p, top_k, generator, mesh)
+
+
 class PagedOps:
     """Engine-facing calls of the paged device ops for one pool, on this
-    rank's shard under tensor parallelism; dp > 1 routes through the _dp
-    variants, whose slot arguments are global (ray_tpu/llm/paged.py:1092-1189;
-    pp > 1 is ROADMAP A2g)."""
+    rank's shard under tensor parallelism. The batched calls are the _dp
+    functions, which at dp 1 are the plain ones on every slot and on a
+    pipeline stage run the layers through the stages; the calls for one
+    slot route dp > 1 through the _dp variants, whose slot arguments are
+    global (ray_tpu/llm/paged.py:1092-1189)."""
 
     def __init__(self, cfg: ModelConfig, mesh=None, slots: int = 1):
         self.cfg = cfg
@@ -748,27 +816,24 @@ class PagedOps:
                                          true_suffix_len, self.cfg, n_blocks, self.mesh)
 
     def decode_step(self, params, state, tokens, active):
-        if self.dp > 1:
-            return decode_step_paged_dp(params, state, tokens, active, self.cfg, self.mesh)
-        return decode_step_paged(params, state, tokens, active, self.cfg, self.mesh)
+        return decode_step_paged_dp(params, state, tokens, active, self.cfg, self.mesh)
 
     def decode_multi(self, params, state, tokens, active, n_steps, temperature, top_p,
                      top_k, steps_left, generator=None):
-        fn = decode_multi_paged_dp if self.dp > 1 else decode_multi_paged
-        return fn(params, state, tokens, active, self.cfg, n_steps, temperature, top_p,
-                  top_k, steps_left, generator, mesh=self.mesh)
+        return decode_multi_paged_dp(params, state, tokens, active, self.cfg, n_steps,
+                                     temperature, top_p, top_k, steps_left, generator,
+                                     mesh=self.mesh)
 
     def spec_verify(self, params, state, window, draft_len, active, temperature, top_p,
                     top_k, generator=None):
-        fn = spec_verify_step_paged_dp if self.dp > 1 else spec_verify_step_paged
-        return fn(params, state, window, draft_len, active, self.cfg, temperature, top_p,
-                  top_k, generator, mesh=self.mesh)
+        return spec_verify_step_paged_dp(params, state, window, draft_len, active, self.cfg,
+                                         temperature, top_p, top_k, generator, mesh=self.mesh)
 
     def spec_multi(self, params, state, hist, hlen, active, temperature, top_p, top_k, m,
                    k, nmax, generator=None):
-        fn = spec_multi_paged_dp if self.dp > 1 else spec_multi_paged
-        return fn(params, state, hist, hlen, active, self.cfg, temperature, top_p, top_k,
-                  m, k, nmax, generator=generator, mesh=self.mesh)
+        return spec_multi_paged_dp(params, state, hist, hlen, active, self.cfg, temperature,
+                                   top_p, top_k, m, k, nmax, generator=generator,
+                                   mesh=self.mesh)
 
 
 # ------------------------------------------------------------------ chunked prefill

@@ -7,8 +7,9 @@ each taking host values (token lists, numpy arrays, ints) and returning
 device tensors. The engine's scheduler, block manager and request
 bookkeeping stay on the host of rank 0.
 
-With ``data_parallel_size`` = D and ``tensor_parallel_size`` = T, D × T > 1,
-the engine is rank 0 of a mesh of D × T ranks, MeshSpec(dp=D, tp=T)
+With ``pipeline_parallel_size`` = P, ``data_parallel_size`` = D and
+``tensor_parallel_size`` = T, P × D × T > 1, the engine is rank 0 of a mesh of
+P × D × T ranks, MeshSpec(pp=P, dp=D, tp=T), stage 0 of replica 0
 (``Followers``): it spawns the other ranks, each running ``follower_main``,
 and announces every call over the whole world (the op's name and its small
 host arguments, ``broadcast_object_list``) before making it itself; each
@@ -34,6 +35,14 @@ with no collective. A batched call (``decode``, ``spec_verify``,
 results are all-gathered over "dp" (model_runner.over_replicas); a replica
 with no active slot skips the model and still joins the gather. Each replica
 seeds its generator with its dp index.
+
+Pipeline parallelism: each stage holds n_layers / P layers (and their KV) of
+its replica. Every call runs on every stage of a replica: a prefill stage by
+stage, a batched call through the microbatch schedule
+(model_runner._pp_schedule), after which every stage holds the same logits
+and samples alike. So "the owning replica" of a call for one slot means all
+its stages, and the first token reaches rank 0 as at pp 1, over "dp" from
+the owner's stage-0 tp-rank 0 (every stage of it holds the token).
 
 A follower that raises prints its traceback and exits at once, which fails
 rank 0's next collective ("connection closed") instead of leaving it to
@@ -85,6 +94,7 @@ def load_params(config: LLMConfig, device, mesh=None, params=None):
     cfg = config.resolve_model_config()
     dtype = torch_dtype(config.dtype)
     int8 = bool(config.quantization)
+    rules = model_runner.infer_rules_for_mesh(mesh)  # a stage holds its layers
     if params is not None:
         def place(v):
             if isinstance(v, QTensor):
@@ -102,10 +112,20 @@ def load_params(config: LLMConfig, device, mesh=None, params=None):
         # real weights, streamed piece by piece into preallocated leaves
         return checkpoint.load_llama_params(
             config.model_source, cfg, device=device, dtype=dtype, quantize_int8=int8,
-            mesh=mesh)
+            mesh=mesh, rules=rules)
     # int8: each layer quantized as it is drawn, never the whole float model
     return llama.init(cfg, seed=0, device=device, dtype=dtype, quantize_int8=int8,
-                      mesh=mesh)
+                      mesh=mesh, rules=rules)
+
+
+def param_bytes(params) -> int:
+    """Bytes of a parameter dict's tensors (an int8 leaf's values and scales)."""
+    total = 0
+    for val in params.values():
+        for leaf in (val.values() if isinstance(val, dict) else [val]):
+            parts = (leaf.q, leaf.s) if isinstance(leaf, QTensor) else (leaf,)
+            total += sum(t.numel() * t.element_size() for t in parts)
+    return total
 
 
 def _pad_blocks(k: torch.Tensor, v: torch.Tensor, n_blocks: int, bs: int):
@@ -122,7 +142,8 @@ class ShardRunner:
     `mesh` is None on one device; `params` a whole parameter dict or None
     (see load_params). Under data parallelism the rank serves its replica's
     slots: a call for one slot runs on the owning replica only, at its local
-    slot, and a batched call on the replica's rows (``ops``)."""
+    slot, and a batched call on the replica's rows (``ops``). Under pipeline
+    parallelism the rank is stage `stage` of its replica."""
 
     def __init__(self, config: LLMConfig, device, mesh=None, params=None):
         self.config = config
@@ -135,6 +156,7 @@ class ShardRunner:
         self.dp = axis_size(mesh, "dp")
         self.replica = axis_index(mesh, "dp")
         self.tp_index = axis_index(mesh, "tp")
+        self.stage = axis_index(mesh, "pp")
         self.slots_per = config.max_num_seqs // self.dp
         # one sampling stream per replica (JAX folds the dp index into its
         # keys); the tp ranks of a replica seed and advance theirs alike
@@ -150,7 +172,8 @@ class ShardRunner:
 
     def _local(self, slot: int) -> Optional[int]:
         """The local slot when this rank's replica owns `slot`, else None:
-        the one gate of the calls for one slot."""
+        the one gate of the calls for one slot (under pp it admits every
+        stage of the owning replica, which all take part)."""
         replica, local = model_runner.slot_replica(slot, self.slots_per)
         return local if replica == self.replica else None
 
@@ -357,10 +380,12 @@ class ShardRunner:
 
     def rank_counts(self) -> List[Dict[str, Any]]:
         """Every rank's counts since reset_counts, by rank (gathered on each):
-        its replica and tp index, COUNTS, B1a's launches in its process and
-        its peak device memory in bytes (0 on the CPU)."""
+        its replica, stage and tp index, COUNTS, B1a's launches in its
+        process, the bytes of the weights it holds and its peak device
+        memory in bytes (0 on the CPU)."""
         mine = dict(self.counts, rank=dist.get_rank() if self.mesh is not None else 0,
-                    replica=self.replica, tp_rank=self.tp_index,
+                    replica=self.replica, stage=self.stage, tp_rank=self.tp_index,
+                    param_bytes=param_bytes(self.params),
                     flash_launches=flash_attention.launch_count(),
                     peak_bytes=(torch.cuda.max_memory_allocated(self.device)
                                 if self.device.type == "cuda" else 0))
@@ -399,15 +424,21 @@ def _receive() -> tuple:
 
 
 def _mesh_spec(config: LLMConfig) -> MeshSpec:
-    return MeshSpec(dp=config.data_parallel_size, tp=config.tensor_parallel_size)
+    return MeshSpec(pp=config.pipeline_parallel_size, dp=config.data_parallel_size,
+                    tp=config.tensor_parallel_size)
 
 
 def follower_main(rank: int, init_method: str, devices: Sequence[str],
-                  config: LLMConfig, params: Optional[Dict[str, Any]]) -> None:
+                  config: LLMConfig, params: Optional[Dict[str, Any]],
+                  threads: int = 0) -> None:
     """A follower rank: join the mesh, build this rank's ShardRunner the way
     rank 0 builds its own, then make every announced call until "stop". Any
-    exception prints its traceback and exits the process at once."""
+    exception prints its traceback and exits the process at once. `threads`
+    (> 0) is rank 0's intra-op thread count, which the follower takes too:
+    the ranks of one host would otherwise each start one thread per core."""
     try:
+        if threads > 0:
+            torch.set_num_threads(threads)
         mesh = build_mesh(_mesh_spec(config), devices, rank=rank, init_method=init_method)
         runner = ShardRunner(config, torch.device(devices[rank]), mesh, params)
         del params
@@ -425,9 +456,10 @@ def follower_main(rank: int, init_method: str, devices: Sequence[str],
 
 class Followers:
     """Rank 0's side of a multi-rank engine: starts len(devices) - 1 follower
-    processes ("spawn"), joins them in a mesh of dp = data_parallel_size and
-    tp = tensor_parallel_size as rank 0 (on devices[0]), and announces each
-    call to them."""
+    processes ("spawn"), P·D·T - 1 of them, joins them in a mesh of pp =
+    pipeline_parallel_size, dp = data_parallel_size and tp =
+    tensor_parallel_size as rank 0 (on devices[0]), and announces each call
+    to them."""
 
     def __init__(self, config: LLMConfig, devices: Sequence[torch.device], params=None):
         names = [str(d) for d in devices]
@@ -435,7 +467,8 @@ class Followers:
         ctx = multiprocessing.get_context("spawn")
         host_params = _host_copy(params)
         self.procs = [ctx.Process(target=follower_main, name=f"tp-follower-{r}", daemon=True,
-                                  args=(r, init_method, names, config, host_params))
+                                  args=(r, init_method, names, config, host_params,
+                                        torch.get_num_threads()))
                       for r in range(1, len(devices))]
         for p in self.procs:
             p.start()

@@ -31,7 +31,8 @@ the file's mapping before it moves, so a rank reads and holds its shard
 and one slice. The one exception is an int8 leaf whose contraction axis is
 sharded (wo, w_down): its scales need the whole piece's max, so that piece
 moves whole, is quantized, and then cut; such a rank's start peak is its
-shards plus one whole piece and its f32 temporaries.
+shards plus one whole piece and its f32 temporaries. A pipeline stage (rules
+that cut "layer" over "pp") reads only its own layers' pieces.
 """
 from __future__ import annotations
 
@@ -44,7 +45,7 @@ import torch
 from ray_tpu_torch.device import resolve_device
 from ray_tpu_torch.ops.quant import (LLAMA_QUANT_KEYS, QTensor, empty_qtensor,
                                      layer_contract_axis, quantize)
-from ray_tpu_torch.parallel.sharding import INFER_RULES, local_shape, shard_view
+from ray_tpu_torch.parallel.sharding import INFER_RULES, local_range, local_shape, shard_view
 
 from . import llama
 from .config import ModelConfig
@@ -247,7 +248,13 @@ def load_llama_params(source_dir: str, cfg: Optional[ModelConfig] = None, device
         local = local_shape(shape, leaf_axes, mesh, rules)
         dst = (torch.empty(local, dtype=dtype, device=dev) if axis is None
                else empty_qtensor(local, axis, dev))
+        # a pipeline stage reads its own layers' pieces only
+        held = local_range(shape[0], leaf_axes[0], mesh, rules)
         for index, key, to_leaf in pieces:
+            if index:
+                if index[0] not in held:
+                    continue
+                index = (index[0] - held.start,) + index[1:]
             piece_axes = leaf_axes[len(index):]
             w = to_leaf(rd.get(key))  # a view of the file's mapping
             want = tuple(shape[len(index):])

@@ -43,8 +43,17 @@ whole; the gather's backward is a reduce-scatter); each rank takes its
 slice of the global batch by the rules' "batch" axes (dp, fsdp), and the
 loss is the global token mean. A mixture-of-experts model under tp > 1 or on
 a training mesh (the experts' "mlp" axis and "ep"), sequence parallelism
-(sp, ring/ulysses attention) and pipeline stages (pp) raise
+(sp, ring/ulysses attention) and training over pipeline stages (pp) raise
 NotImplementedError naming ROADMAP A6.
+
+Pipeline stages in serving (a mesh whose "pp" axis holds P > 1 ranks, and
+rules that cut the stacked "layer" axis over "pp":
+llm/model_runner.infer_rules_for_mesh): a stage holds its n_layers / P
+layers (``init``, ``local_layers``) and a KV cache of those layers
+(``init_kv_cache``), and ``forward`` with a cache runs them as one stage of
+the chain: stage 0 embeds, every later stage receives the previous one's
+hidden states, and the last stage's rows reach every stage before the final
+norm and the head (parallel/pipeline.py), so every rank holds the logits.
 """
 from __future__ import annotations
 
@@ -61,10 +70,11 @@ from ray_tpu_torch.ops.attention import attention
 from ray_tpu_torch.ops.quant import (LLAMA_QUANT_KEYS, QTensor, as_weight, empty_qtensor,
                                      layer_contract_axis, quantize, quantize_layer,
                                      quantize_layer_)
+from ray_tpu_torch.parallel import pipeline
 from ray_tpu_torch.parallel.mesh import axis_index, axis_size
 from ray_tpu_torch.parallel.sharding import (INFER_RULES, TRAIN_RULES, AxisRules, all_gather,
-                                             all_reduce, copy_to, gather_leaf, local_shape,
-                                             shard_leaf, shard_view)
+                                             all_reduce, copy_to, gather_leaf, local_range,
+                                             local_shape, shard_leaf, shard_view)
 
 from . import moe
 from .config import ModelConfig
@@ -187,8 +197,10 @@ def init(cfg: ModelConfig, *, seed: int = 0, device=None,
 
     With a `mesh`, each rank draws every piece whole (the same numbers on
     every rank), quantizes it whole, and keeps its shard by `rules`
-    (INFER_RULES for serving, TRAIN_RULES for training): bit for bit
-    shard_pytree of the unsharded init, holding the shards plus one piece."""
+    (INFER_RULES for serving, TRAIN_RULES for training; a pipeline stage's
+    rules cut "layer" over "pp", and the stage keeps its layers only): bit
+    for bit shard_pytree of the unsharded init, holding the shards plus one
+    piece."""
     dev = resolve_device(device)
     check_tensor_parallel(cfg, mesh)
     shapes, scales, axes = param_shapes(cfg), _init_scales(cfg), param_axes(cfg)
@@ -209,6 +221,7 @@ def init(cfg: ModelConfig, *, seed: int = 0, device=None,
         return shard_view(x, leaf_axes[1:], mesh, rules)
 
     ls, la = shapes["layers"], axes["layers"]
+    held = local_range(cfg.n_layers, "layer", mesh, rules)  # this stage's layers
     layers: Params = {}
     for name, shape in ls.items():
         shape = local_shape(shape, la[name], mesh, rules)
@@ -222,14 +235,18 @@ def init(cfg: ModelConfig, *, seed: int = 0, device=None,
         for name, shape in ls.items():
             if scales[name] == 0.0:
                 continue
+            # every stage draws every layer, so the stream is one rank's
             w = draw(shape[1:], scales[name])
+            if i not in held:
+                continue
+            j = i - held.start
             dst, axis = layers[name], layer_contract_axis(name, ls)
             if not isinstance(dst, QTensor):
-                dst[i] = piece(w, la[name])
+                dst[j] = piece(w, la[name])
             elif tuple(dst.q.shape[1:]) == tuple(w.shape):
-                quantize_layer_(dst, i, w, axis)  # unsharded: in place
+                quantize_layer_(dst, j, w, axis)  # unsharded: in place
             else:  # scales from the whole piece, then the shard
-                dst.q[i], dst.s[i] = piece(quantize_layer(w, axis), la[name])
+                dst.q[j], dst.s[j] = piece(quantize_layer(w, axis), la[name])
     params: Params = {
         "embed": shard(draw(shapes["embed"], 1.0), axes["embed"]),
         "layers": layers,
@@ -354,6 +371,13 @@ def tree_unflatten(like: Params, leaves: List[Any]) -> Params:
     return out
 
 
+def local_layers(params: Params) -> int:
+    """The stacked layers a parameter dict holds: n_layers, or a pipeline
+    stage's n_layers / P."""
+    w = params["layers"]["attn_norm"]
+    return (w.q if isinstance(w, QTensor) else w).shape[0]
+
+
 def layer_params(params: Params, i: int) -> Params:
     """Layer i's slice of the stacked layer weights (views, no copies)."""
     return {name: w.layer(i) if isinstance(w, QTensor) else w[i]
@@ -395,11 +419,12 @@ class KVCache(NamedTuple):
 
 def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
                   device=None, mesh=None) -> KVCache:
-    """A zeroed cache; under tp > 1 it holds this rank's kv heads."""
+    """A zeroed cache; under tp > 1 it holds this rank's kv heads, on a
+    pipeline stage its n_layers / P layers."""
     dev = resolve_device(device)
     dtype = dtype or cfg.activation_dtype
-    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads // axis_size(mesh, "tp"),
-             cfg.head_dim)
+    shape = (cfg.n_layers // axis_size(mesh, "pp"), batch, max_len,
+             cfg.n_kv_heads // axis_size(mesh, "tp"), cfg.head_dim)
     return KVCache(k=torch.zeros(shape, dtype=dtype, device=dev),
                    v=torch.zeros(shape, dtype=dtype, device=dev), length=0)
 
@@ -504,16 +529,30 @@ def forward(
     also cut over fsdp, each leaf gathered where it is used), tokens are
     this rank's rows, and every rank returns the whole logits of them, or
     with local_logits=True its [B, S, V / tp] columns. Differentiable
-    throughout: the collectives carry their gradients."""
+    throughout: the collectives carry their gradients.
+
+    On a mesh with pipeline stages (serving: a cache is required) params and
+    cache hold this stage's layers; the stage runs them on the embedding
+    (stage 0) or on the previous stage's hidden states, hands its own to the
+    next stage, and every stage takes the last stage's rows (those of `at`
+    only) to the final norm and the head."""
     if cfg.pipeline_stages > 1 and cache is None:
         raise NotImplementedError("pipeline_stages > 1: ROADMAP A6")
+    pp, stage = axis_size(mesh, "pp"), axis_index(mesh, "pp")
+    if pp > 1 and cache is None:
+        raise NotImplementedError("pipeline stages without a KV cache (training over pp): "
+                                  "ROADMAP A6")
     b, s = tokens.shape
     if positions is None:
         start = cache.length if cache is not None else 0
         positions = (torch.arange(s, device=tokens.device) + start)[None, :].expand(b, s)
     axes = param_axes(cfg)
-    x = _embed_lookup(gather_leaf(params["embed"], axes["embed"], mesh, rules), tokens,
-                      cfg.activation_dtype, mesh)
+    if stage == 0:
+        x = _embed_lookup(gather_leaf(params["embed"], axes["embed"], mesh, rules), tokens,
+                          cfg.activation_dtype, mesh)
+    else:
+        x = pipeline.recv_from_prev((b, s, cfg.d_model), cfg.activation_dtype, tokens.device,
+                                    mesh)
 
     def gathered(lp):  # a layer's leaves joined over fsdp where the rules cut them
         return {name: gather_leaf(w, axes["layers"][name][1:], mesh, rules)
@@ -527,7 +566,7 @@ def forward(
 
         layer = _maybe_remat(body, cfg)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device) if return_aux else None
-    for i in range(cfg.n_layers):
+    for i in range(local_layers(params)):
         lp = layer_params(params, i)
         if cache is not None:
             x, _, aux = _block(x, gathered(lp), cfg, positions, segment_ids,
@@ -539,8 +578,11 @@ def forward(
     new_cache = None
     if cache is not None:
         new_cache = KVCache(cache.k, cache.v, cache.length + s)
+    if stage < pp - 1:
+        pipeline.send_to_next(x, mesh)
     if at is not None:
         x = x[:, at:at + 1]
+    x = pipeline.from_last_stage(x, mesh)
     x = rms_norm(x, gather_leaf(params["final_norm"], axes["final_norm"], mesh, rules),
                  cfg.norm_eps)
     logits = logits_of(x, params, cfg, mesh, rules, local=local_logits)

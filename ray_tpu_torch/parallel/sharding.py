@@ -32,7 +32,8 @@ grad) each is the plain call, ``all_reduce`` in place: serving keeps its
 bits.
 
 ``with_sharding_constraint``, ``manual_axes``, ``vary_like`` and the
-shard_map helpers serve sequence and pipeline parallelism (ROADMAP A6).
+shard_map helpers serve sequence parallelism (ROADMAP A6); pipeline stages
+hand activations on by parallel/pipeline.py.
 """
 from __future__ import annotations
 
@@ -143,6 +144,12 @@ def local_shape(shape, axes, mesh, rules: AxisRules) -> Tuple[int, ...]:
     """The shape of this rank's shard of an array of `shape`."""
     return tuple(len(range(*s.indices(n))) for s, n in zip(_slices(shape, axes, mesh, rules),
                                                              shape))
+
+
+def local_range(size: int, axis: LogicalAxis, mesh, rules: AxisRules) -> range:
+    """The indices of a dim of `size` with logical `axis` that this rank
+    holds (e.g. a pipeline stage's layers, "layer" cut over "pp")."""
+    return range(size)[_slices((size,), (axis,), mesh, rules)[0]]
 
 
 def shard_view(x: Any, axes, mesh, rules: AxisRules) -> Any:

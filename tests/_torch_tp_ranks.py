@@ -476,3 +476,141 @@ def runner_ids(_, spec, np_params, model_cfg, config_kw, prompts, slots, n_gen):
                          np.ones((s_n,), np.float32), np.zeros((s_n,), np.int64),
                          np.full((s_n,), n_gen - 1, np.int64)).numpy()
     return [[int(first[s])] + [int(t) for t in toks[:, s]] for s in slots]
+
+
+# -- jobs of the pipeline-parallel tests (tests/test_torch_port_pipeline_parallel.py) ----
+
+def _cache(state):
+    """This rank's KV state as numpy copies: every layer of its stage, every
+    slot (or pool block, its scratch block dropped) of its replica."""
+    pool = isinstance(state, paged.PagedState)
+    out = dict(k=(state.k[:, :-1] if pool else state.k).numpy().copy(),
+               v=(state.v[:, :-1] if pool else state.v).numpy().copy(),
+               lengths=state.lengths.numpy().copy())
+    if pool:
+        out["tables"] = state.block_tables.numpy().copy()
+    return out
+
+
+def pp_functions(_, spec, np_params, cfg_name, plan):
+    """The port's pipelined functions on this rank, in plan's order (the JAX
+    side runs the same calls): each prompt prefilled into its slot on the
+    replica that owns it (every stage of it: model_runner.prefill, or
+    prefill_detached and PagedOps.install_prefill into plan["ids"], then
+    the appended blocks), decode_step_pp (or decode_step_paged_pp) fed
+    plan["feed"] with plan["active"], then one greedy speculative verify
+    window -> each step's outputs and this rank's KV after it."""
+    mesh = mesh_of(spec)
+    cfg, params = _params(np_params, cfg_name)
+    params = model_runner.shard_params(params, cfg, mesh)
+    s_n, layout = len(plan["prompts"]), plan["layout"]
+    per = s_n // mesh.size(mesh.mesh_dim_names.index("dp"))
+    ops = paged.PagedOps(cfg, mesh, s_n)
+    if layout == "paged":
+        state = paged.init_paged_state(cfg, s_n, plan["max_len"], plan["num_blocks"],
+                                       plan["bs"], device="cpu", mesh=mesh)
+    else:
+        state = model_runner.init_state(cfg, s_n, plan["max_len"], device="cpu", mesh=mesh)
+    first = [None] * s_n
+    for slot, prompt in enumerate(plan["prompts"]):
+        if not _owns(mesh, slot, per):
+            continue
+        tokens = _tokens(prompt, plan["bucket"])
+        if layout == "paged":
+            k, v, last = model_runner.prefill_detached(params, tokens, len(prompt), cfg,
+                                                       mesh=mesh)
+            ids = plan["ids"][slot]
+            state = ops.install_prefill(state, k, v, ids, len(prompt), slot, len(ids))
+            index, bid = plan["appends"][slot]
+            state = ops.append_block(state, slot, index, bid)
+        else:
+            state, last = model_runner.prefill(params, state, tokens, len(prompt), slot % per,
+                                               cfg, mesh=mesh)
+        first[slot] = last.numpy()
+    out = {"coord": coordinate(mesh), "first": first, "installed": _cache(state)}
+    active = torch.tensor(plan["active"])
+    step = paged.decode_step_paged_pp if layout == "paged" else model_runner.decode_step_pp
+    verify = (paged.spec_verify_step_paged_pp if layout == "paged"
+              else model_runner.spec_verify_step_pp)
+    steps = []
+    for row in plan["feed"]:
+        state, logits = step(params, state, torch.tensor(row), active, cfg, mesh)
+        steps.append(logits.numpy())
+    out["steps"], out["decoded"] = np.stack(steps), _cache(state)
+    greedy = (torch.zeros((s_n,)), torch.ones((s_n,)), torch.zeros((s_n,), dtype=torch.int64))
+    state, toks, n_acc = verify(params, state, torch.tensor(plan["window"]),
+                                torch.tensor(plan["draft_len"]), active, cfg, *greedy, None,
+                                mesh)
+    out["verify"], out["verified"] = (toks.numpy(), n_acc.numpy()), _cache(state)
+    return out
+
+
+def _leaf_shapes(params):
+    return {name: ({k: tuple((v.q if hasattr(v, "q") else v).shape) for k, v in val.items()}
+                   if isinstance(val, dict) else tuple(val.shape))
+            for name, val in params.items()}
+
+
+def stage_leaves(_, spec, np_params, cfg_name, src):
+    """What a pipeline stage holds at `spec`: the leaf shapes and values of
+    the engine's weights from each source (llm/tp_worker.load_params: the
+    seeded init, a checkpoint directory `src`, a whole parameter dict,
+    int8), each beside this rank's shard of the whole one by
+    infer_rules_for_mesh; the bridge's shard of the JAX tree; and the shapes
+    of its slot cache, paged pool and a prefill's cache."""
+    from ray_tpu_torch.llm.config import LLMConfig
+    from ray_tpu_torch.llm.tp_worker import load_params, param_bytes
+
+    mesh = mesh_of(spec)
+    cfg = get_config(cfg_name)
+    rules = model_runner.infer_rules_for_mesh(mesh)
+    axes = llama.param_axes(cfg)
+    dev = torch.device("cpu")
+
+    def config(**kw):
+        return LLMConfig(model_source=kw.pop("model_source", cfg_name), dtype="float32", **kw)
+
+    def shard(p):
+        return bridge.params_to_numpy(shard_pytree(p, axes, mesh, rules))
+
+    whole_np = bridge.params_from_jax(np_params, cfg, device="cpu")
+    got = {
+        "init": (load_params(config(), dev, mesh), llama.init(cfg, seed=0, device="cpu")),
+        "int8": (load_params(config(quantization="int8"), dev, mesh),
+                 quantize_llama_params(llama.init(cfg, seed=0, device="cpu"))),
+        "checkpoint": (load_params(config(model_source=src), dev, mesh),
+                       checkpoint.load_llama_params(src, cfg, device="cpu",
+                                                    dtype=torch.float32)),
+        "params": (load_params(config(), dev, mesh, whole_np), whole_np),
+    }
+    out = {"coord": coordinate(mesh)}
+    for name, (mine, whole) in got.items():
+        out[name] = dict(shapes=_leaf_shapes(mine), bytes=param_bytes(mine),
+                         whole_bytes=param_bytes(whole), got=bridge.params_to_numpy(mine),
+                         want=shard(whole))
+    out["bridge"] = (bridge.params_to_numpy(bridge.params_from_jax(np_params, cfg, device="cpu",
+                                                                  mesh=mesh, rules=rules)),
+                     shard(whole_np))
+    out["caches"] = dict(
+        slot=tuple(model_runner.init_state(cfg, 4, 64, device="cpu", mesh=mesh).k.shape),
+        paged=tuple(paged.init_paged_state(cfg, 4, 64, 8, 16, device="cpu", mesh=mesh).k.shape),
+        prefill=tuple(llama.init_kv_cache(cfg, 1, 32, device="cpu", mesh=mesh).k.shape))
+    return out
+
+
+def stage_hops(_, spec, x):
+    """parallel.pipeline on this rank: stage s sends x + s on and receives
+    the previous stage's, then every stage takes the last stage's
+    (x + last) -> (coordinate, what it received or None, the broadcast)."""
+    from ray_tpu_torch.parallel import pipeline
+
+    mesh = mesh_of(spec)
+    stage = axis_index(mesh, "pp")
+    last = mesh.size(mesh.mesh_dim_names.index("pp")) - 1
+    mine = torch.from_numpy(x) + stage
+    got = None
+    if stage > 0:
+        got = pipeline.recv_from_prev(x.shape, mine.dtype, "cpu", mesh).numpy()
+    if stage < last:
+        pipeline.send_to_next(mine, mesh)
+    return coordinate(mesh), got, pipeline.from_last_stage(mine, mesh).numpy()

@@ -656,7 +656,8 @@ def test_replicas_draw_apart_and_tp_ranks_alike(ranks, np_params, kind, config_k
 
 @pytest.mark.parametrize("kw,err,match", [
     (dict(data_parallel_size=2, expert_parallel_size=2), NotImplementedError, "ROADMAP A6"),
-    (dict(data_parallel_size=2, pipeline_parallel_size=2), NotImplementedError, "ROADMAP A2g"),
+    (dict(data_parallel_size=2, pipeline_parallel_size=2, model_source="moe-tiny"),
+     NotImplementedError, "ROADMAP A6"),
     (dict(data_parallel_size=2, tensor_parallel_size=2, model_source="moe-tiny"),
      NotImplementedError, "ROADMAP A6"),
     (dict(data_parallel_size=3), ValueError,

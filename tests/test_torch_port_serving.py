@@ -366,11 +366,12 @@ def test_loop_crash_fails_in_flight_requests_and_keeps_serving(pt_params, monkey
         eng.shutdown()
 
 
-@pytest.mark.parametrize("kw", [dict(pipeline_parallel_size=2),
+@pytest.mark.parametrize("kw", [dict(pipeline_parallel_size=2, expert_parallel_size=2),
                                 dict(expert_parallel_size=2),
                                 dict(data_parallel_size=2, expert_parallel_size=2),
                                 dict(tensor_parallel_size=2, model_source="moe-tiny"),
-                                dict(kv_layout="paged", pipeline_parallel_size=2)])
+                                dict(kv_layout="paged", pipeline_parallel_size=2,
+                                     model_source="moe-tiny")])
 def test_config_refuses_what_the_slice_does_not_serve(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP A"):
         LLMConfig(**kw)

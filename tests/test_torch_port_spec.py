@@ -8,6 +8,7 @@ logits taken from spec_driver's layer seam) and the fused burst per layout
 through the n-gram proposer and through the propose_fn seam. The engines are
 held to the port's plain greedy engine; no JAX engine is started.
 """
+import functools
 import threading
 
 import jax
@@ -401,6 +402,33 @@ def test_spec_engine_greedy_equals_plain(plain_greedy, pt_params, layout, steps)
     assert bool(fused) == (steps > 1) and all(x > 1 for x in fused)
     if layout == "paged":
         assert m["kv_blocks_free"] == m["kv_blocks_total"]
+
+
+@pytest.mark.parametrize("layout", ["slot", "paged"])
+def test_fused_spec_engine_proposes_through_the_layouts_seam(plain_greedy, pt_params, layout,
+                                                             monkeypatch):
+    """The engine's fused windows are the layout's spec_multi (slot) or
+    spec_multi_paged (paged): an oracle given through its propose_fn seam
+    (as chip_smoke's phase 6 gives it) is called, and it drafts the plain
+    continuation of RANDOM, on which the n-gram proposer drafts little, so
+    the fused windows draft k tokens each and accept them all."""
+    want = plain_greedy[1]
+    table = np.zeros((SLOTS, 128), np.int32)
+    table[:, :len(RANDOM) + len(want)] = RANDOM + want
+    proposed = []
+    oracle = _pt_oracle(table)
+    owner, name = (pt_runner, "spec_multi") if layout == "slot" else (pt_paged,
+                                                                        "spec_multi_paged")
+    monkeypatch.setattr(owner, name, functools.partial(
+        getattr(owner, name), propose_fn=lambda *a: (proposed.append(1), oracle(*a))[1]))
+    kw = dict(kv_layout="paged", kv_block_size=BS) if layout == "paged" else {}
+    eng = _engine(pt_params, num_speculative_tokens=2, num_decode_steps=4, **kw)
+    eng._propose_ngram = lambda req, cap: want[len(req.token_history) - len(RANDOM):][:cap]
+    got = _serve(eng, [(RANDOM, SamplingParams(max_tokens=GEN, **NEG))])
+    assert got[0].token_ids == want
+    m = eng.metrics()
+    assert proposed
+    assert m["num_spec_accepted"] == m["num_spec_drafted"] >= 0.9 * (GEN - 1) * 2 / 3
 
 
 # ids past the vocabulary and below 0 after repeated tokens: the n-gram

@@ -499,7 +499,9 @@ def test_pd_under_tp_raises_naming_a6():
 def test_other_parallel_sizes_still_raise():
     for kw, item in ((dict(model_source="moe-tiny", data_parallel_size=2,
                            tensor_parallel_size=2), "A6"),
-                     (dict(expert_parallel_size=2), "A6"), (dict(pipeline_parallel_size=2), "A2g")):
+                     (dict(expert_parallel_size=2), "A6"),
+                     (dict(pipeline_parallel_size=2, tensor_parallel_size=2,
+                           expert_parallel_size=2), "A6")):
         with pytest.raises(NotImplementedError, match=f"ROADMAP .*{item}"):
             LLMConfig(**kw)
 
