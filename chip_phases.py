@@ -1,18 +1,21 @@
 """Run chosen phases of chip_smoke.py alone on one card, from the checkout at
 ROOT (this one, or an unpacked parent commit to compare with on the same host):
 
-    python3 chip_phases.py ROOT PHASE [PHASE ...]    # PHASE: T, 6 or PP
+    python3 chip_phases.py ROOT PHASE [PHASE ...]    # PHASE: T, 6, PP, F or G
 
 It imports ROOT's chip_smoke.py and ray_tpu_torch, builds the kernels, takes
-phase 3's weights from a seeded llama3-8b engine, then runs each phase in
-turn (T: tensor parallelism, 6: int8 and speculation, PP: pipeline
-parallelism) with its own gates, and prints each one's wall time.
+phase 3's weights from a seeded llama3-8b engine when a serving phase is
+asked for, then runs each phase in turn (T: tensor parallelism, 6: int8 and
+speculation, PP: pipeline parallelism, F: training on a mesh, G: gradient
+sync on a training mesh) with its own gates, and prints each one's wall
+time.
 """
 import os
 import sys
 import time
 
-PHASES = ("T", "6", "PP")
+PHASES = ("T", "6", "PP", "F", "G")
+SERVING = ("T", "6", "PP")  # the phases that serve phase 3's weights
 
 
 def main() -> int:
@@ -42,9 +45,11 @@ def main() -> int:
     cs.build_all(_build)
     print(f"[{root}] {card}; torch threads {torch.get_num_threads()}; built in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
-    server = LLMServer(LLMConfig(model_source="llama3-8b"))
-    params = server.engine.params  # phase 3's weights
-    server.engine.shutdown()
+    params = None
+    if any(p in SERVING for p in phases):
+        server = LLMServer(LLMConfig(model_source="llama3-8b"))
+        params = server.engine.params  # phase 3's weights
+        server.engine.shutdown()
     for phase in phases:
         t0 = time.perf_counter()
         print(f"[{root}] phase {phase}", flush=True)
@@ -52,6 +57,10 @@ def main() -> int:
             cs.tp_path(torch, fa, card, params)
         elif phase == "6":
             cs.spec_path(torch, fa, card, params)
+        elif phase == "F":
+            cs.mesh_train_path(torch, fa, card)
+        elif phase == "G":
+            cs.sync_train_path(torch, fa, card)
         else:
             cs.pp_path(torch, fa, card, params, cs.serve_reference(torch, params))
         print(f"[{root}] phase {phase} wall {time.perf_counter() - t0:.1f} s", flush=True)

@@ -69,9 +69,9 @@ Phases, each fatal on failure (the script exits non-zero and prints no result):
      cuda:0,1 too where there are two cards), in the slot layout, paged
      (bench_serve's blocks and buckets, prefix cache on, fused bursts at the
      default width) and paged with n-gram speculation (k = 4): the four
-     prompts at once, then a repeat of the first alone, 16 tokens each,
+     prompts at once, then a repeat of the first alone, 8 tokens each,
      every rank's counts zeroed just before and read just after. Gates:
-     every request ends with "length" after its 16 tokens; the served ids
+     every request ends with "length" after its 8 tokens; the served ids
      equal dp 1's up to its first near tie (as T's gate); each rank
      launched B1a n_layers times per whole prefill it computed (one at
      least) and decoded with an active slot; the repeat ran on one replica
@@ -119,7 +119,7 @@ Phases, each fatal on failure (the script exits non-zero and prints no result):
      single-window; device, fused m = 4) on three repetitive prompts P + C
      + P, C the plain engine's own greedy continuation of P (each run must
      draft; acceptance and tok/s beside the plain engine); bench_spec_modes
-     at batch 1 and 8 (the paged layout at 8 only) of SPEC_GEN tokens (48;
+     at batch 1 and 8 (the paged layout at 8 only) of SPEC_GEN tokens (32;
      bench_serve's 96, cut to keep the run's time) in f32, as there (one f32 copy of the
      weights): the plain engine, fused-only m = 8, and the oracle (the
      plain engine's greedy continuation as drafts, through _propose_ngram
@@ -170,6 +170,25 @@ Phases, each fatal on failure (the script exits non-zero and prints no result):
      rank, one more step with every collective bracketed by syncs (their
      ms and count), the peak GiB per rank. Four ranks on one card through
      the host, not a mesh speed;
+  G. after F, gradient sync on a training mesh (A8): llama8b-geom2 (remat
+     dots) on MeshSpec(dp=2, fsdp=2), four spawned ranks sharing cuda:0 over
+     gloo (NCCL on cuda:0..3 where the machine has four cards; each wait
+     bounded), phase F's seeded init and batch, through make_train_step(
+     sync=) in turn from the same init: (a) the plain step, (b) the bucketed
+     f32 sync (64 MiB buckets), (c) int8, (d) the sharded update on (b), one
+     step each with the launch counts zeroed just before and read just
+     after. Gates: (b) bit-equal to (a) in params, moments and metrics (each
+     replica holds 2048 of the 4096 tokens), >= 2 buckets, the first
+     launched before the backward's last gradient (overlap_report); the
+     bucketed loss on a ragged loss_mask within MESH_LOSS_TOL of the mean of
+     the replicas' one-rank means (computed here first); (c)'s reduced
+     gradients of the seeded init on that batch within the mean over ranks of
+     amax_block/254 of (b)'s, its params within MESH_PARAM_SLACK x lr of
+     (b)'s; (d) params and moment slices bit-equal to (b)'s, its optimizer
+     bytes the reckoned share; B1a/B1b/B1c per rank as launches_per_step,
+     at 1 row, 32 / 8 heads; every rank's metrics the same bits. Recorded:
+     step ms, peak GiB and optimizer bytes per rank and mode. Ranks sharing
+     one card through the host, not a dp speed;
   9. MoE serving: mixtral-8x7b at full width and depth (32 layers, 8
      experts, top-2) with LLMConfig(quantization="int8"), which starts it
      in int8 one layer at a time (its bf16 weights do not fit the card):
@@ -346,9 +365,9 @@ PAGED = dict(kv_layout="paged", max_num_seqs=32, max_model_len=1024, kv_block_si
 # a suffix) and in their bf16 roundings, through 32 layers
 PAGED_TOL = 2e-2
 SPEC_K = 4  # bench_serve.py's drafts per window (bench_spec_modes)
-SPEC_GEN = 48  # tokens per oracle request (bench_spec_modes' gen_tokens is 96)
+SPEC_GEN = 32  # tokens per oracle request (bench_spec_modes' gen_tokens is 96; cut for the run's time)
 SPEC_BATCHES = (1, 8)  # concurrent oracle requests (bench_serve.py:1600)
-NGRAM_GEN = 48  # tokens per n-gram request
+NGRAM_GEN = 32  # tokens per n-gram request
 NGRAM_SEEDS = (1, 2, 3)  # one n-gram request per seed, served together
 
 
@@ -509,6 +528,10 @@ def backward_checks(torch, fa):
     # one rank's heads and rows of llama8b-geom2 on phase F's fsdp 2 x tp 2
     # mesh: the batch of 4 over fsdp, 32 / 8 heads over tp
     cases.append(dict(b=MESH_BATCH[0] // 2, s=MESH_BATCH[1] - 1, h=16, hkv=4, d=128,
+                      causal=True, seg=False))
+    # one rank's row of phase G's dp 2 x fsdp 2 mesh: the batch of 4 over
+    # (dp, fsdp), every head (B1a's own check has this shape: B1 S1024 H32/8)
+    cases.append(dict(b=MESH_BATCH[0] // 4, s=MESH_BATCH[1] - 1, h=32, hkv=8, d=128,
                       causal=True, seg=False))
     for dtype, tol in ((torch.bfloat16, BWD_BF16_TOL), (torch.float32, BWD_F32_TOL)):
         for c in cases:
@@ -1283,6 +1306,314 @@ def mesh_train_path(torch, fa, card):
         launches_per_rank_per_step={k: v // MESH_STEPS for k, v in got[0]["launches"].items()},
         tol=dict(loss=MESH_LOSS_TOL, grad_norm=MESH_NORM_TOL, params=slack), ranks_s=ranks_s,
         left_gib=left / 2**30, wall_s=wall)
+
+
+# phase G: gradient sync on a training mesh (A8). llama8b-geom2 (remat dots)
+# on dp 2 x fsdp 2, phase F's seeded init and batch, four ranks sharing cuda:0
+# over gloo (NCCL on cuda:0..3 where the machine has four cards), through
+# make_train_step(sync=) in turn: (a) the plain step (sync=None, the
+# environment unset), (b) the bucketed f32 sync, (c) int8, (d) the sharded
+# update on top of (b). Each replica holds 2 x 1024 tokens of the 4096, so
+# its own token mean is the global one scaled by a power of two and (b) is
+# bit-equal to (a): the reference "with no buckets" (each element's dp
+# reduction is one a + b either way). Times of ranks sharing one card, not
+# a dp speed.
+SYNC_MESH = dict(dp=2, fsdp=2)
+SYNC_LR = dict(warmup_steps=0, total_steps=1000)  # the step at the peak lr
+SYNC_STEPS = 1
+SYNC_BUCKET = 64 << 20
+SYNC_WAIT_S = 400  # a rank that does not answer within this fails the run
+
+
+def sync_mask(torch):
+    """Phase G's ragged loss_mask over MESH_BATCH: rows of every, ~70 %, ~30 %
+    and ~2 % of the tokens, so the two dp replicas hold unequal counts."""
+    gen = torch.Generator()
+    gen.manual_seed(8)
+    u = torch.rand(MESH_BATCH, generator=gen)
+    return (u < torch.tensor([1.0, 0.7, 0.3, 0.02])[:, None]).long()
+
+
+def sync_rank(rank, init_method, devices, tokens, mask, outbox):
+    """One rank of phase G (a spawned process): the modes in turn from the
+    same seeded init, each with SYNC_STEPS steps whose kernel counts are
+    zeroed just before and read just after; the bucketed and int8 reduced
+    gradients of the initial parameters; the bucketed loss on the ragged
+    mask. Puts (rank, result) or (rank, traceback)."""
+    import traceback
+
+    import torch
+    import torch.distributed as dist
+
+    try:
+        from ray_tpu_torch.models import llama
+        from ray_tpu_torch.models.config import get_config
+        from ray_tpu_torch.ops import flash_attention as fa
+        from ray_tpu_torch.parallel import MeshSpec, build_mesh
+        from ray_tpu_torch.train import grad_sync, init_state, make_optimizer, make_train_step
+        from ray_tpu_torch.train.grad_sync import GradSyncConfig
+
+        mesh = build_mesh(MeshSpec(**SYNC_MESH), devices, rank=rank, init_method=init_method)
+        dev = torch.device(devices[rank])
+        cfg = get_config("llama8b-geom2", remat_policy="dots")
+        batch = {"tokens": tokens.to(dev)}
+        ragged = {"tokens": batch["tokens"], "loss_mask": mask.to(dev)}
+        bucketed = GradSyncConfig(mode="bucketed", bucket_bytes=SYNC_BUCKET)
+        modes = {"plain": None, "bucketed": bucketed,
+                 "int8": GradSyncConfig(mode="bucketed", bucket_bytes=SYNC_BUCKET,
+                                        compression="int8"),
+                 "sharded": GradSyncConfig(mode="bucketed", bucket_bytes=SYNC_BUCKET,
+                                           sharded_update=True)}
+        out = dict(rank=rank, coord=list(mesh.get_coordinate()), backend=dist.get_backend(),
+                   modes={})
+        seen = set()  # (rows, q heads, kv heads) at every B1a and B1b/B1c call
+        for name in ("flash_attention_forward", "flash_attention_backward"):
+            def spy(*args, _fn=getattr(fa, name), **kw):
+                seen.add((args[0].shape[0], args[0].shape[2], args[1].shape[2]))
+                return _fn(*args, **kw)
+            setattr(fa, name, spy)
+
+        # the reduced gradients of the seeded init on the ragged batch: (b) f32
+        # (its loss the replica mean) against (c) int8, with the int8
+        # contract's bound from the block scales every rank sent; the first
+        # call also warms the rank up (cuBLAS, the kernels' modules)
+        tx = make_optimizer(**SYNC_LR)
+        state = init_state(cfg, tx, seed=0, device=dev, mesh=mesh)
+        t = time.perf_counter()
+        m, ref = make_train_step(cfg, tx, device=dev, mesh=mesh, sync=bucketed).grads(
+            state.params, 0, ragged)
+        out["ragged"] = {k: v.item() for k, v in m.items()}
+        out["warm_s"] = time.perf_counter() - t
+        step = make_train_step(cfg, tx, device=dev, mesh=mesh, sync=modes["int8"])
+        _, got = step.grads(state.params, 0, ragged)
+        worst, block, names = [0.0, None], modes["int8"].quant_block_elems, step.names
+        for i, (a, b) in enumerate(zip(ref, got)):
+            err = (b.float() - a.float()).abs().reshape(-1)
+            if i in step.scales:  # per element: the mean over ranks of amax_block / 254
+                per_block = (step.scales[i][..., 0] * 127.0 / 254.0).mean(dim=0)
+                bound = per_block.repeat_interleave(block)[:err.numel()]
+            else:  # a leaf left in f32
+                bound = torch.zeros_like(err)
+            slack = 1e-6 * a.abs().max().item()  # f32 rounding of the sums
+            excess = (err - bound - slack).max().item()
+            ratio = (err / (bound + slack)).max().item()
+            if ratio > worst[0]:
+                worst = [ratio, names[i]]
+            if excess > 0:
+                raise RuntimeError(f"int8 gradient of {names[i]} exceeds the contract by "
+                                   f"{excess:.3e}")
+        out["int8_grads"] = dict(worst_err_over_bound=worst[0], at=worst[1],
+                                 quantized=[names[i] for i in sorted(step.scales)])
+        del ref, got, state, step
+        torch.cuda.empty_cache()
+
+        kept = {}
+        for name, sync in modes.items():
+            torch.cuda.synchronize(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            tx = make_optimizer(**SYNC_LR)
+            state = init_state(cfg, tx, seed=0, device=dev, mesh=mesh, sync=sync)
+            step = make_train_step(cfg, tx, device=dev, mesh=mesh, sync=sync)
+            rec = dict(metrics=[], walls=[])
+            torch.cuda.synchronize(dev)
+            seen.clear()
+            fa.reset_launch_count()
+            # ---- the mode's steps: counts zeroed just before, read just after ----
+            for _ in range(SYNC_STEPS):
+                t = time.perf_counter()
+                state, m = step(state, batch)
+                torch.cuda.synchronize(dev)
+                rec["walls"].append(time.perf_counter() - t)
+                rec["metrics"].append({k: v.item() for k, v in m.items()})
+            rec["launches"] = {k: fa.launch_count(k) for k in fa.KERNELS}
+            # ---- end ----
+            rec["seen"] = sorted(seen)
+            # beyond (a)'s parameters and moments kept for the gates below
+            rec["peak_gib"] = (torch.cuda.max_memory_allocated(dev)
+                               - kept.get("nbytes", 0)) / 2**30
+            rec["opt_bytes"] = grad_sync.opt_state_bytes_per_shard(state.opt_state)
+            if sync is not None and sync.mode == "bucketed":
+                rec["buckets"] = len(step.buckets)
+                rec["overlap"] = grad_sync.overlap_report(step)
+            leaves = llama.tree_leaves(state.params)
+            if name == "plain":
+                kept = dict(params=[p.detach().clone() for p in leaves],
+                            mu=[x.clone() for x in state.opt_state.mu],
+                            opt_bytes=[m.nelement() * m.element_size() * 2
+                                       for m in state.opt_state.mu])
+                kept["nbytes"] = sum(x.nelement() * x.element_size()
+                                     for x in kept["params"] + kept["mu"])
+            else:  # against (a); (c) and (d) against (b), which is bit-equal to it
+                rec["param_max_diff"] = max((p.detach() - q).abs().max().item()
+                                            for p, q in zip(leaves, kept["params"]))
+                if name == "sharded":
+                    dims = step.dims
+                    mine = [grad_sync.update_slice(x, mesh, d) for x, d in
+                            zip(kept["mu"], dims)]
+                    rec["mu_max_diff"] = max((a - b).abs().max().item()
+                                             for a, b in zip(state.opt_state.mu, mine))
+                    rec["reckoned_opt_bytes"] = sum(
+                        nb // (math.prod(grad_sync.axis_size(mesh, a) for a in d.axes)
+                               if d else 1)
+                        for nb, d in zip(kept["opt_bytes"], dims))
+                else:
+                    rec["mu_max_diff"] = max((a - b).abs().max().item()
+                                             for a, b in zip(state.opt_state.mu, kept["mu"]))
+            out["modes"][name] = rec
+            del state, step, leaves
+            torch.cuda.empty_cache()
+        out["lrs"] = [make_optimizer(**SYNC_LR).learning_rate(i) for i in range(SYNC_STEPS)]
+        outbox.put((rank, out))
+        dist.destroy_process_group()
+    except BaseException:
+        outbox.put((rank, traceback.format_exc()))
+
+
+def sync_reference_loss(torch, tokens, mask):
+    """The equal-weighted replica mean JAX's bucketed step takes: the
+    one-rank loss_fn (no mesh) on each dp replica's rows of the ragged
+    batch, averaged, and the global token mean beside it."""
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.models.config import get_config
+
+    cfg = get_config("llama8b-geom2", remat_policy="dots")
+    params = llama.init(cfg, seed=0, device="cuda", dtype=torch.float32)
+    rows = MESH_BATCH[0] // SYNC_MESH["dp"]
+    with torch.no_grad():
+        means = [llama.loss_fn(params, {"tokens": tokens[r * rows:(r + 1) * rows].cuda(),
+                                        "loss_mask": mask[r * rows:(r + 1) * rows].cuda()},
+                               cfg)[0].item() for r in range(SYNC_MESH["dp"])]
+        whole = llama.loss_fn(params, {"tokens": tokens.cuda(), "loss_mask": mask.cuda()},
+                              cfg)[0].item()
+    del params
+    torch.cuda.empty_cache()
+    return sum(means) / len(means), means, whole
+
+
+def sync_train_path(torch, fa, card):
+    """Phase G: the one-rank reference loss on the ragged mask in this
+    process, then the four ranks (see the comment above SYNC_MESH), each
+    gate fatal."""
+    import multiprocessing
+    import queue
+    import socket
+
+    from ray_tpu_torch.models.config import get_config
+
+    t_phase = time.perf_counter()
+    held = torch.cuda.memory_allocated()
+    if held > 2 * 2**30:
+        raise SystemExit(f"{held / 2**30:.2f} GiB still allocated before phase G")
+    cfg = get_config("llama8b-geom2")
+    tokens, mask = mesh_tokens(torch), sync_mask(torch)
+    t0 = time.perf_counter()
+    ref_loss, ref_means, whole = sync_reference_loss(torch, tokens, mask)
+    ref_s = time.perf_counter() - t0
+    n = math.prod(SYNC_MESH.values())
+    devices = ([f"cuda:{i}" for i in range(n)] if torch.cuda.device_count() >= n
+               else ["cuda:0"] * n)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        init_method = f"tcp://127.0.0.1:{s.getsockname()[1]}"
+    ctx = multiprocessing.get_context("spawn")
+    outbox = ctx.Queue()
+    procs = [ctx.Process(target=sync_rank, daemon=True,
+                         args=(r, init_method, devices, tokens, mask, outbox))
+             for r in range(n)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    got = {}
+    try:
+        for _ in procs:
+            rank, out = outbox.get(timeout=SYNC_WAIT_S)
+            if isinstance(out, str):
+                raise SystemExit(f"phase G rank {rank} failed:\n{out}")
+            got[rank] = out
+    except queue.Empty:
+        raise SystemExit(f"phase G: a rank did not answer within {SYNC_WAIT_S} s") from None
+    finally:
+        for p in procs:
+            p.join(30)
+            if p.is_alive():
+                p.kill()
+                p.join(5)
+    ranks_s = time.perf_counter() - t0
+    where = (f"4 ranks sharing one H100 over {got[0]['backend']}" if len(set(devices)) == 1
+             else f"{n} cards over {got[0]['backend']}")
+    print(f"  one-rank reference on the ragged mask: replica means {ref_means} -> "
+          f"{ref_loss:.6f} (the global token mean {whole:.6f}); {ref_s:.1f} s", flush=True)
+    want = {k: SYNC_STEPS * v for k, v in launches_per_step(cfg.n_layers).items()}
+    heads = [(MESH_BATCH[0] // n, cfg.n_heads, cfg.n_kv_heads)]
+    slack = MESH_PARAM_SLACK * sum(got[0]["lrs"])
+    fails = []
+    for r, o in sorted(got.items()):
+        modes = o["modes"]
+        rag = abs(o["ragged"]["loss"] - ref_loss) / abs(ref_loss)
+        print(f"  rank {r} at {o['coord']}: ragged-mask loss {o['ragged']['loss']:.6f} (rel "
+              f"{rag:.2e} to the replica mean, tol {MESH_LOSS_TOL}), tokens "
+              f"{o['ragged']['tokens']}; int8 gradients: worst err / bound "
+              f"{o['int8_grads']['worst_err_over_bound']:.3f} at {o['int8_grads']['at']} "
+              f"({len(o['int8_grads']['quantized'])} leaves quantized); warm-up "
+              f"{o['warm_s']:.2f} s", flush=True)
+        if rag > MESH_LOSS_TOL:
+            fails.append(f"rank {r}: the ragged-mask loss is not the replica mean ({rag:.2e})")
+        for name, m in modes.items():
+            extra = ""
+            if "buckets" in m:
+                ov = m["overlap"]
+                extra += (f"; {m['buckets']} buckets, {ov['n_reductions']} reductions, first "
+                          f"launch {min(ov['launch_s']) * 1e3:+.1f} ms from the last gradient, "
+                          f"all sunk to the end: {ov['all_sunk_to_end']}")
+            for key in ("param_max_diff", "mu_max_diff"):
+                if key in m:
+                    extra += f"; {key} {m[key]:.3e}"
+            if "reckoned_opt_bytes" in m:
+                extra += f" (reckoned opt bytes {m['reckoned_opt_bytes']})"
+            print(f"    {name}: losses {[x['loss'] for x in m['metrics']]}, grad_norms "
+                  f"{[x['grad_norm'] for x in m['metrics']]}, steps "
+                  f"{[f'{w * 1e3:.1f}' for w in m['walls']]} ms, peak {m['peak_gib']:.2f} GiB "
+                  f"(beyond (a)'s kept copies), "
+                  f"opt bytes {m['opt_bytes']}, launches {m['launches']} at {m['seen']}{extra} "
+                  f"[{where}; {card}]", flush=True)
+            if m["launches"] != want or m["seen"] != heads:
+                fails.append(f"rank {r} {name}: launches {m['launches']} at {m['seen']}, "
+                             f"want {want} at {heads}")
+            if not all(math.isfinite(x["loss"]) for x in m["metrics"]):
+                fails.append(f"rank {r} {name}: a loss is not finite")
+        b = modes["bucketed"]
+        if (b["param_max_diff"] != 0.0 or b["mu_max_diff"] != 0.0
+                or b["metrics"] != modes["plain"]["metrics"]):
+            fails.append(f"rank {r}: {b['buckets']} buckets are not bit-equal to the plain "
+                         f"step: params {b['param_max_diff']:.3e}, mu {b['mu_max_diff']:.3e}")
+        if b["buckets"] < 2 or b["overlap"]["all_sunk_to_end"]:
+            fails.append(f"rank {r}: every reduction was launched after the backward "
+                         f"({b['overlap']})")
+        if not modes["int8"]["param_max_diff"] <= slack:
+            fails.append(f"rank {r}: int8 params {modes['int8']['param_max_diff']:.3e} from "
+                         f"f32's (slack {slack:.3e})")
+        d = modes["sharded"]
+        if d["param_max_diff"] != 0.0 or d["mu_max_diff"] != 0.0:
+            fails.append(f"rank {r}: the sharded update is not bit-equal to the replicated one")
+        if d["opt_bytes"] != d["reckoned_opt_bytes"] or d["opt_bytes"] >= b["opt_bytes"]:
+            fails.append(f"rank {r}: sharded optimizer bytes {d['opt_bytes']}, reckoned "
+                         f"{d['reckoned_opt_bytes']}, replicated {b['opt_bytes']}")
+    for name in got[0]["modes"]:
+        if any(o["modes"][name]["metrics"] != got[0]["modes"][name]["metrics"]
+               for o in got.values()):
+            fails.append(f"{name}: the ranks' metrics differ")
+    wall = time.perf_counter() - t_phase
+    print(f"  ranks {ranks_s:.1f} s; phase G took {wall:.1f} s", flush=True)
+    if fails:
+        raise SystemExit("phase G failed:\n  " + "\n  ".join(fails))
+    return dict(mesh=SYNC_MESH, batch=MESH_BATCH, devices=devices, where=where,
+                reference=dict(loss=ref_loss, replica_means=ref_means, global_mean=whole,
+                               s=ref_s),
+                ranks=got, tol=dict(loss=MESH_LOSS_TOL, params=slack),
+                launches_per_rank_per_step={k: v // SYNC_STEPS
+                                            for k, v in got[0]["modes"]["plain"]["launches"]
+                                            .items()},
+                ranks_s=ranks_s, left_gib=torch.cuda.memory_allocated() / 2**30, wall_s=wall)
 
 
 def rel_err(got, ref):
@@ -4490,7 +4821,7 @@ WGMMA_KERNELS = tuple(f"flash_{k}_bf16_wgmma_kernel<{d}>"
 TP = 2
 TP_FED = 16  # decode steps teacher-forced with tp 1's greedy ids
 TP_TOL = 2e-2  # bf16 logits, max|d| / max|ref|, tp 2 against tp 1 on the same weights
-TP_GEN = 16  # tokens per served request
+TP_GEN = 8  # tokens per served request
 TP_LABEL = {"gloo": "2 ranks sharing one H100 over gloo", "nccl": "2 H100s over NCCL"}
 
 
@@ -4905,7 +5236,7 @@ def tp_path(torch, fa, card, params):
 # with 4 of 8 slots and, paged, half the pool and a prefix cache of its own.
 # The numbers are those of 2 replicas sharing one H100, not a DP speed.
 DP = 2
-DP_GEN = 16  # tokens per served request (<= TP_FED + 1: the ids gate's depth)
+DP_GEN = 8  # tokens per served request (<= TP_FED + 1: the ids gate's depth)
 # four of phase 3's prompts (121, 201, 301, 501 tokens). They share their
 # leading text, so a later one hits the prefix cache of its replica; the
 # 1001-token one would then fail with "length" in both packages (its cached
@@ -5367,6 +5698,10 @@ def main() -> int:
           "the card over gloo, against the one-rank step")
     mesh_trained = mesh_train_path(torch, fa, card)
 
+    header(t_start, "[G] gradient sync on a training mesh: llama8b-geom2 on dp 2 x fsdp 2, four ranks "
+           "sharing the card, the plain step, bucketed f32, int8 and the sharded update")
+    sync_trained = sync_train_path(torch, fa, card)
+
     header(t_start, "[9] MoE serving: mixtral-8x7b, int8, one card")
     moe_served = moe_path(torch, fa, card)
 
@@ -5429,6 +5764,8 @@ def main() -> int:
     kernels[0]["launches_pd"] = pd_served["launches"]
     for k in kernels:  # per rank per step, on each rank's B2 and H16/KV4
         k["launches_train_mesh"] = mesh_trained["launches_per_rank_per_step"][k["name"]]
+    for k in kernels:  # per rank per step of every mode, on each rank's B1 and H32/KV8
+        k["launches_grad_sync"] = sync_trained["launches_per_rank_per_step"][k["name"]]
     kernels[0]["launches_tp"] = {  # per rank per prefill at H16/KV4; rank 0 while served
         "per_rank_per_prefill": tp_served["logits"]["gloo"]["ranks"][0]["launches"],
         **{name: tp_served[name]["launches"] for name in ("slot", "paged", "int8")}}
@@ -5472,7 +5809,7 @@ def main() -> int:
                   paged=paged_served,
                   int8=quant_served, spec=spec_served, pd=pd_served,
                   trained=trained_runs, train_numerics=train_check,
-                  mesh_training=mesh_trained, moe=moe_served,
+                  mesh_training=mesh_trained, grad_sync=sync_trained, moe=moe_served,
                   checkpoint=ckpt_served, moe_trained=moe_trained, rl=rl,
                   rl_offpolicy=rl_off, rl_multi_agent=rl_ma, rl_dreamer=rl_dreamer,
                   rl_impala=rl_impala,

@@ -597,11 +597,13 @@ def batch_axes(rules: AxisRules) -> Tuple[str, ...]:
     return (axes,) if isinstance(axes, str) else tuple(axes or ())
 
 
-def batch_sum(x: torch.Tensor, mesh, rules: AxisRules = TRAIN_RULES) -> torch.Tensor:
-    """x summed over every mesh axis of the batch (differentiable: each
-    rank's gradient flows to its own part)."""
+def batch_sum(x: torch.Tensor, mesh, rules: AxisRules = TRAIN_RULES,
+              skip: Tuple[str, ...] = ()) -> torch.Tensor:
+    """x summed over every mesh axis of the batch but those in `skip`
+    (differentiable: each rank's gradient flows to its own part)."""
     for axis in batch_axes(rules):
-        x = all_reduce(x, mesh, axis)
+        if axis not in skip:
+            x = all_reduce(x, mesh, axis)
     return x
 
 
@@ -620,7 +622,7 @@ def _vocab_parallel_ll(logits: torch.Tensor, targets: torch.Tensor, mesh) -> tor
 
 
 def loss_fn(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig, *,
-            mesh=None, rules: AxisRules = TRAIN_RULES
+            mesh=None, rules: AxisRules = TRAIN_RULES, manual: Tuple[str, ...] = ()
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Next-token cross entropy (ray_tpu/models/llama.py:437-460). batch:
     tokens [B, S]; optional loss_mask [B, S] and segment_ids [B, S]. Inputs
@@ -632,7 +634,10 @@ def loss_fn(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig, *,
     axes); the cross entropy is vocab-parallel over "tp", and Σ(ll·mask)
     and Σmask are summed over the batch axes before the division, so the
     loss and the metrics are the global token mean's, the same on every
-    rank (not a mean of the ranks' means)."""
+    rank (not a mean of the ranks' means). Batch axes in `manual` are left
+    out of those sums (JAX's manual_axes): with manual=("dp",), as the
+    bucketed grad sync calls it, the loss is the rank's dp replica's own
+    token mean, and the caller averages over dp."""
     check_training_mesh(cfg, mesh)
     if mesh is not None:
         batch = {k: shard_view(v, ("batch", None), mesh, rules) for k, v in batch.items()}
@@ -653,7 +658,7 @@ def loss_fn(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig, *,
     mask = batch.get("loss_mask")
     mask = torch.ones_like(ll) if mask is None else mask[:, 1:].to(ll.dtype)
     with torch.no_grad():
-        denom = batch_sum(mask.sum(), mesh, rules).clamp_min(1.0)
-    ce = -batch_sum((ll * mask).sum(), mesh, rules) / denom
+        denom = batch_sum(mask.sum(), mesh, rules, manual).clamp_min(1.0)
+    ce = -batch_sum((ll * mask).sum(), mesh, rules, manual) / denom
     loss = ce + aux
     return loss, {"loss": loss, "ce_loss": ce, "moe_aux_loss": aux, "tokens": denom}

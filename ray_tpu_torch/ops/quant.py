@@ -14,8 +14,9 @@ use: the int8 bytes halve what the model holds, not what a step reads
 (a fused W8A16 GEMM is ROADMAP queue B).
 
 ``quantize_blockwise`` / ``dequant_blockwise`` (the gradient-sync reduction
-format) and ``quantize_np`` / ``dequant_np`` (the collective wire format)
-complete the module; the port's grad sync (ROADMAP A8) does not call them yet.
+format: train/grad_sync.py quantizes each rank's contribution with the
+first) and ``quantize_np`` / ``dequant_np`` (the collective wire format)
+complete the module.
 """
 from __future__ import annotations
 

@@ -22,8 +22,13 @@ After the backward each leaf's gradient is summed over the batch axes that
 do not cut it (dp; fsdp's come reduce-scattered from the gathers), the
 global norm sums each leaf's squares over the axes that cut it, and AdamW
 updates the local shards. The metrics are the global values, the same on
-every rank. The grad-sync modes (``sync=``, ROADMAP A8), and a MoE model or
-sp or pp on the mesh (A6), raise NotImplementedError.
+every rank. A MoE model or sp or pp on the mesh (A6) raise
+NotImplementedError.
+
+``sync=GradSyncConfig(...)`` (train/grad_sync.py, None reads the
+environment as in JAX) makes the dp reduction bucketed and launched during
+the backward, int8 block-quantized, and the AdamW update sharded over the
+update axes; the step object is grad_sync.GradSyncStep for every config.
 """
 from __future__ import annotations
 
@@ -31,13 +36,11 @@ from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple, Union
 
 import torch
 
-from ray_tpu_torch.device import resolve_device
 from ray_tpu_torch.models import checkpoint, llama
 from ray_tpu_torch.models.config import ModelConfig, torch_dtype
-from ray_tpu_torch.parallel.mesh import axis_size
-from ray_tpu_torch.parallel.sharding import TRAIN_RULES, AxisRules, all_reduce, cut_axes
+from ray_tpu_torch.parallel.sharding import TRAIN_RULES, AxisRules
 
-from . import optim
+from . import grad_sync, optim
 
 
 class TrainState(NamedTuple):
@@ -71,10 +74,11 @@ def make_optimizer(
                            grad_clip=grad_clip, mu_dtype=mu_dtype)
 
 
-def _not_yet(cfg: ModelConfig, mesh, sync) -> None:
-    if sync is not None:
-        raise NotImplementedError("grad-sync modes (sync=...): ROADMAP A8")
+def _checked(cfg: ModelConfig, mesh, sync) -> grad_sync.GradSyncConfig:
+    sync = grad_sync.resolve(sync)
+    grad_sync.check_supported(cfg, mesh, sync)
     llama.check_training_mesh(cfg, mesh)
+    return sync
 
 
 def init_state(cfg: ModelConfig, tx: optim.Optimizer, *, seed: int = 0, device=None,
@@ -85,8 +89,9 @@ def init_state(cfg: ModelConfig, tx: optim.Optimizer, *, seed: int = 0, device=N
     checkpoint_dir the parameters are that checkpoint's instead, in f32 (a
     warm start: fine-tuning from a released model). With a `mesh`, this
     rank's shards of either by `rules` (bit for bit the shard of the whole),
-    and the moments of the shards."""
-    _not_yet(cfg, mesh, sync)
+    and the moments of the shards: with sync=GradSyncConfig(sharded_update=
+    True), of each shard's update slice (grad_sync.update_dims)."""
+    sync = _checked(cfg, mesh, sync)
     if checkpoint_dir is not None:
         params = checkpoint.load_llama_params(checkpoint_dir, cfg, device=device,
                                               dtype=torch.float32, mesh=mesh, rules=rules)
@@ -96,6 +101,9 @@ def init_state(cfg: ModelConfig, tx: optim.Optimizer, *, seed: int = 0, device=N
     leaves = llama.tree_leaves(params)
     for p in leaves:
         p.requires_grad_(True)
+    if sync.sharded_update and mesh is not None:
+        dims = grad_sync.update_dims(cfg, mesh, rules, sync.update_axes)
+        leaves = [grad_sync.update_slice(p, mesh, d) for p, d in zip(leaves, dims)]
     return TrainState(0, params, tx.init(leaves))
 
 
@@ -133,35 +141,10 @@ def make_train_step(
     With a `mesh` (JAX's step reads it from its inputs' shardings; here it
     is named), the state is this rank's shards by `rules` (init_state(mesh=))
     and every rank passes the same global batch; loss_fn is called with
-    mesh= and rules=, and the metrics are the global values."""
-    _not_yet(cfg, mesh, sync)
-    loss_fn = loss_fn or llama.loss_fn
-    dev = resolve_device(device)
-    kw = {} if mesh is None else dict(mesh=mesh, rules=rules)
-    cuts = [cut_axes(a, mesh, rules) for a in llama.tree_leaves(llama.param_axes(cfg))]
-    sums = [a for a in llama.batch_axes(rules) if axis_size(mesh, a) > 1]
+    mesh= and rules=, and the metrics are the global values.
 
-    def step(state: TrainState, batch: Dict[str, torch.Tensor]):
-        leaves = llama.tree_leaves(state.params)
-        if any(p.device.type != dev.type for p in leaves):
-            raise ValueError(f"train state is not on the step's device {dev}")
-        if not donate:
-            state = _copy(state)
-            leaves = llama.tree_leaves(state.params)
-        with torch.enable_grad():
-            for p in leaves:
-                p.requires_grad_(True)
-            loss, aux = loss_fn(state.params, batch, cfg, **kw)
-            grads = list(torch.autograd.grad(loss, leaves))
-        metrics = {name: val.detach() for name, val in aux.items()}
-        norm = None
-        if mesh is not None:
-            for g, cut in zip(grads, cuts):  # dp (and any batch axis a leaf is not cut over)
-                for axis in sums:
-                    if axis not in cut:
-                        all_reduce(g, mesh, axis)
-            norm = optim.global_norm(grads, mesh, cuts)
-        opt_state, metrics["grad_norm"] = tx.update_(grads, state.opt_state, leaves, norm)
-        return TrainState(state.step + 1, state.params, opt_state), metrics
-
-    return step
+    `sync` (a GradSyncConfig; None reads GradSyncConfig.from_env()) picks
+    the grad sync (train/grad_sync.py); under mode="bucketed" loss_fn is
+    also given manual=("dp",) and returns its dp replica's own mean."""
+    return grad_sync.GradSyncStep(cfg, tx, loss_fn, _checked(cfg, mesh, sync), donate,
+                                  device=device, mesh=mesh, rules=rules)

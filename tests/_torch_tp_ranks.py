@@ -25,7 +25,7 @@ from ray_tpu_torch.ops.quant import quantize_llama_params
 from ray_tpu_torch.parallel import (INFER_RULES, TRAIN_RULES, MeshSpec, axis_index, build_mesh,
                                     shard_leaf, shard_pytree, shard_view)
 from ray_tpu_torch.parallel import sharding
-from ray_tpu_torch.train import optim
+from ray_tpu_torch.train import grad_sync, optim
 from ray_tpu_torch.train import step as train_step
 
 TIMEOUT_S = 60.0  # the groups' own bound (parallel.mesh.GROUP_TIMEOUT_S)
@@ -272,14 +272,15 @@ def init_shards(_, spec, cfg_name, src):
 
 
 def refusal(_, what):
-    """The NotImplementedError a training mesh raises for `what` (moe, sync,
-    sp, pp), or None when nothing raises."""
-    spec = {"sp": MeshSpec(sp=2, tp=2), "pp": MeshSpec(pp=2, dp=2)}.get(what,
-                                                                        MeshSpec(fsdp=2, tp=2))
+    """The NotImplementedError a training mesh raises for `what` (moe, sp,
+    pp, or sync: a bucketed grad sync on an sp mesh), or None when nothing
+    raises."""
+    spec = {"sp": MeshSpec(sp=2, tp=2), "sync": MeshSpec(sp=2, tp=2),
+            "pp": MeshSpec(pp=2, dp=2)}.get(what, MeshSpec(fsdp=2, tp=2))
     mesh = mesh_of(spec)
     cfg = get_config("moe-tiny" if what == "moe" else "test-tiny")
     tx = train_step.make_optimizer()
-    sync = object() if what == "sync" else None
+    sync = grad_sync.GradSyncConfig(mode="bucketed") if what == "sync" else None
     got = []
     for call in (lambda: train_step.init_state(cfg, tx, device="cpu", mesh=mesh, sync=sync),
                  lambda: train_step.make_train_step(cfg, tx, device="cpu", mesh=mesh,
@@ -289,6 +290,105 @@ def refusal(_, what):
             got.append(None)
         except NotImplementedError as e:
             got.append(str(e))
+    return got
+
+
+# -- jobs of the grad-sync tests (tests/test_torch_port_grad_sync.py) -------------------
+
+def _bridged_state(mesh, cfg, tx, np_params, sync):
+    """init_state(mesh=, sync=) with its params replaced by the bridged
+    TRAIN_RULES shards of np_params (the moments are zeros of the sync's
+    layout either way)."""
+    state = train_step.init_state(cfg, tx, device="cpu", mesh=mesh, sync=sync)
+    params = _leaves_requiring_grad(bridge.params_from_jax(np_params, cfg, device="cpu",
+                                                           mesh=mesh, rules=TRAIN_RULES))
+    return state._replace(params=params)
+
+
+def grad_sync_runs(_, spec, np_params, cfg_kw, batch, opt_kw, n_steps, runs):
+    """For each named GradSyncConfig's kwargs in `runs`: a bridged state
+    (init_state(sync=)), then n_steps of make_train_step(sync=) on the
+    global `batch` -> {"coord", "own_tokens", name: {metrics, shards and
+    AdamW's state after each step, the update dims, the optimizer bytes,
+    the buckets' leaf names, the overlap report}}."""
+    mesh = mesh_of(spec)
+    cfg = get_config(**cfg_kw)
+    batch = {k: torch.from_numpy(v).long() for k, v in batch.items()}
+    own = shard_view(batch["loss_mask"][:, 1:], ("batch", None), mesh, TRAIN_RULES)
+    out = dict(coord=coordinate(mesh), own_tokens=int(own.sum()))
+    for name, kw in runs.items():
+        sync = grad_sync.GradSyncConfig(**kw)
+        tx = train_step.make_optimizer(**opt_kw)
+        state = _bridged_state(mesh, cfg, tx, np_params, sync)
+        step = train_step.make_train_step(cfg, tx, device="cpu", mesh=mesh, sync=sync)
+        metrics, shards, opts = [], [], []
+        for _ in range(n_steps):
+            state, m = step(state, batch)
+            metrics.append({k: v.item() for k, v in m.items()})
+            shards.append(copy.deepcopy(bridge.params_to_numpy(state.params)))
+            opts.append(copy.deepcopy(bridge.opt_state_to_numpy(state.opt_state,
+                                                                state.params)))
+        out[name] = dict(
+            metrics=metrics, params=shards, opt=opts, dims=step.dims,
+            opt_bytes=grad_sync.opt_state_bytes_per_shard(state.opt_state),
+            buckets=None if step.buckets is None else [[step.names[i] for i in b]
+                                                        for b in step.buckets],
+            report=grad_sync.overlap_report(step) if step.explicit else None)
+    return out
+
+
+def synced_grads(_, spec, np_params, cfg_kw, batch, runs, count=0):
+    """Each named config's reduced gradients (GradSyncStep.grads) on the
+    bridged shards at update count `count` -> {"coord", name: (leaf names,
+    grads as numpy, the int8 leaves' gathered block scales [W, nblocks]
+    by name)}."""
+    mesh = mesh_of(spec)
+    cfg = get_config(**cfg_kw)
+    batch = {k: torch.from_numpy(v).long() for k, v in batch.items()}
+    out = {"coord": coordinate(mesh)}
+    for name, kw in runs.items():
+        step = train_step.make_train_step(cfg, train_step.make_optimizer(), device="cpu",
+                                          mesh=mesh, sync=grad_sync.GradSyncConfig(**kw))
+        params = _leaves_requiring_grad(bridge.params_from_jax(np_params, cfg, device="cpu",
+                                                               mesh=mesh, rules=TRAIN_RULES))
+        _, grads = step.grads(params, count, batch)
+        out[name] = (step.names, [g.detach().numpy().copy() for g in grads],
+                     {step.names[i]: s[..., 0].numpy().copy() for i, s in step.scales.items()})
+    return out
+
+
+def quantized_means(_, spec, xs, sync_kw, seeds):
+    """grad_sync.quantized_mean of xs[i] (this rank's contribution: its
+    index along dp) over dp, round-nearest, and with each of `seeds`
+    stochastic -> (coordinate, the nearest result, the stochastic ones)."""
+    mesh = mesh_of(spec)
+    sync = grad_sync.GradSyncConfig(mode="bucketed", compression="int8", **sync_kw)
+    x = torch.from_numpy(xs[axis_index(mesh, "dp")])
+    near = grad_sync.quantized_mean(x, mesh, "dp", sync).numpy()
+    sr = [grad_sync.quantized_mean(x, mesh, "dp", sync,
+                                   grad_sync.rounding_generator(seed, 0, dist.get_rank(),
+                                                                x.device)).numpy()
+          for seed in seeds]
+    return coordinate(mesh), near, np.stack(sr) if sr else None
+
+
+def sync_refusal(_, spec, cfg_name, sync_kw, cfg_kw=None):
+    """make_train_step(sync=GradSyncConfig(**sync_kw)) and init_state(sync=)
+    on a mesh of `spec` -> what each raised, as (type name, message), or
+    None."""
+    mesh = mesh_of(spec)
+    cfg = get_config(cfg_name, **(cfg_kw or {}))
+    tx = train_step.make_optimizer()
+    sync = grad_sync.GradSyncConfig(**sync_kw)
+    got = []
+    for call in (lambda: train_step.init_state(cfg, tx, device="cpu", mesh=mesh, sync=sync),
+                 lambda: train_step.make_train_step(cfg, tx, device="cpu", mesh=mesh,
+                                                    sync=sync)):
+        try:
+            call()
+            got.append(None)
+        except (NotImplementedError, ValueError) as e:
+            got.append((type(e).__name__, str(e)))
     return got
 
 

@@ -227,25 +227,31 @@ def test_train_step_refuses_a_state_on_another_device(monkeypatch):
 @pytest.mark.parametrize("kwarg,error,match", [
     ("checkpoint_dir", FileNotFoundError, "no-such-checkpoint"),
     ("mesh", NotImplementedError, "A6"),
-    ("sync", NotImplementedError, "A8")])
+    ("sync", NotImplementedError, "A11"),
+    ("sync", TypeError, "GradSyncConfig")])
 def test_training_options_outside_the_slice_raise(tmp_path, kwarg, error, match):
     """What training does not run yet raises naming its ROADMAP item: a
     mixture-of-experts model on a mesh (ep, A6: refused from the config,
     before the mesh is read; tests/test_torch_port_train_mesh.py drives the
-    dense model on gloo meshes and the sp / pp refusals) and the grad-sync
-    modes (A8); a checkpoint_dir that does not exist raises
-    FileNotFoundError, as the JAX package's reader does."""
+    dense model on gloo meshes and the sp / pp refusals) and the grad sync's
+    telemetry mode (GradSyncConfig(telemetry=True), A11; the other grad-sync
+    modes run: tests/test_torch_port_grad_sync.py); a sync= that is not a
+    GradSyncConfig raises TypeError; a checkpoint_dir that does not exist
+    raises FileNotFoundError, as the JAX package's reader does."""
     from ray_tpu_torch import train
     from ray_tpu_torch.models import config
+    from ray_tpu_torch.train.grad_sync import GradSyncConfig
 
     tiny = config.get_config("moe-tiny" if kwarg == "mesh" else "test-tiny")
     tx = train.make_optimizer()
-    value = str(tmp_path / "no-such-checkpoint") if kwarg == "checkpoint_dir" else "x"
+    value = {"checkpoint_dir": str(tmp_path / "no-such-checkpoint"),
+             "sync": GradSyncConfig(telemetry=True) if error is NotImplementedError else "x"
+             }.get(kwarg, "x")
     with pytest.raises(error, match=match):
         train.init_state(tiny, tx, device="cpu", **{kwarg: value})
     if kwarg == "sync":
         with pytest.raises(error, match=match):
-            train.make_train_step(tiny, tx, sync="x", device="cpu")
+            train.make_train_step(tiny, tx, sync=value, device="cpu")
 
 
 @pytest.mark.parametrize("lib", ["flash_fwd", "flash_bwd"])

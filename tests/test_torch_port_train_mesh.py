@@ -283,13 +283,14 @@ def test_init_and_load_give_the_shards_of_the_whole(name, ranks, checkpoint_src)
             assert mu_shape == nu_shape == p_shape and mu_sum == nu_sum == 0.0
 
 
-@pytest.mark.parametrize("what,item", [("moe", "A6"), ("sync", "A8"), ("sp", "A6"),
+@pytest.mark.parametrize("what,item", [("moe", "A6"), ("sync", "A6"), ("sp", "A6"),
                                        ("pp", "A6")])
 def test_training_mesh_refusals_name_their_item(what, item, ranks):
-    """A MoE model, sync=, and sp or pp of more than one rank on a training
-    mesh raise NotImplementedError naming their ROADMAP item, from both
-    init_state and make_train_step."""
-    words = {"moe": "mixture-of-experts", "sync": "grad-sync", "sp": "sequence",
+    """A MoE model, sp or pp of more than one rank, and a grad sync
+    (sync=GradSyncConfig(mode="bucketed")) on an sp mesh raise
+    NotImplementedError naming their ROADMAP item, from both init_state and
+    make_train_step."""
+    words = {"moe": "mixture-of-experts", "sync": "grad sync", "sp": "sequence",
              "pp": "pipeline"}[what]
     for got in ranks.run(ranks_mod.refusal, what):
         assert all(msg is not None and f"ROADMAP {item}" in msg and words in msg
